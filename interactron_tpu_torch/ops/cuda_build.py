@@ -1,0 +1,73 @@
+"""Build the package's CUDA sources into shared libraries and load them.
+
+Each `csrc/<name>.cu` is compiled by its own `nvcc` for `sm_90a` into
+`build/torch_kernels/lib<name>-<hash>.so` at the repository root, with a
+plain C interface loaded through ctypes. The file name carries a hash of the
+source, so an edited source is rebuilt and a stale library is never loaded.
+Nothing is compiled at import time: the first kernel call (or `build_all`)
+does it.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
+SOURCES = ("flash_fwd", "flash_bwd")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_loaded = {}
+
+
+def _nvcc():
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def _target(name):
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + (CSRC / "common.cuh").read_bytes())
+    return src, BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+
+
+def build_all(names=SOURCES):
+    """Compile every missing library, one nvcc per source, all at once.
+    Returns {name: ptxas report}; raises if any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        src, out = _target(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True), tmp, out)
+    reports = {}
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+        os.replace(tmp, out)
+        reports[name] = log
+    return reports
+
+
+def load(name):
+    """The ctypes handle of `lib<name>`, building it first if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        _, out = _target(name)
+        if not out.exists():
+            build_all((name,))
+        lib = ctypes.CDLL(str(out))
+        _loaded[name] = lib
+    return lib
