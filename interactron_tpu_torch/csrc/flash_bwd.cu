@@ -7,7 +7,9 @@
 // P = exp(q.k^T * scale - L), forms dS = P * (dP - delta) with dP = dO.v^T,
 // and writes dV = P^T dO, dK = scale * dS^T q, dQ = scale * dS k. P is cast
 // to dO's dtype before dV and dS to q's dtype before dK and dQ, as the TPU
-// kernel does.
+// kernel does. With dropout (keep bits of csrc/dropout.cuh), dP becomes
+// keep / (1 - rate) * (dO.v^T) and dV = (P * keep / (1 - rate))^T dO, while
+// dS = P * (dP - delta) keeps the undropped P and delta = rowsum(dO * O).
 //
 // Bound on the H100: five (T x S x D) products against the forward's two,
 // so at the fusion shape (B=1, H=8, T=S=2060, D=64) about 21.7 GFLOP,
@@ -26,6 +28,7 @@
 // P = dS = 0 and are never written. Arithmetic is scalar fp32 FMA through
 // shared memory; tensor cores and a dQ pass without atomics come later.
 #include "common.cuh"
+#include "dropout.cuh"
 
 namespace {
 
@@ -39,7 +42,7 @@ bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
            const T* __restrict__ v, const T* __restrict__ dout,
            const float* __restrict__ lse, const float* __restrict__ delta,
            float* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
-           int t_len, int s_len, int heads, float scale) {
+           int t_len, int s_len, int heads, float scale, ipt::Dropout drop) {
   constexpr int CPR = THREADS / D;      // rows covered per pass of (row, col) maps
   constexpr int KV_E = BK * D / THREADS;  // dK/dV entries per thread
   constexpr int Q_E = BQ * D / THREADS;   // dQ entries per thread
@@ -52,6 +55,7 @@ bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __shared__ float dSs[BQ][BK + 1];
   __shared__ float Ls[BQ];
   __shared__ float Dl[BQ];
+  __shared__ uint32_t Rk[BQ];  // dropout row keys of the q-tile
 
   const int tid = threadIdx.x;
   const int bh = blockIdx.y;
@@ -97,6 +101,7 @@ bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const bool ok = q0 + tid < t_len;
       Ls[tid] = ok ? lb[q0 + tid] : 0.f;
       Dl[tid] = ok ? db[q0 + tid] : 0.f;
+      Rk[tid] = ipt::row_key(drop.seed, bh, q0 + tid);
     }
     __syncthreads();
 
@@ -113,8 +118,9 @@ bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
       const bool ok = (q0 + i < t_len) && (k0 + pj < s_len);
       const float p = ok ? exp2f(sdot * s2 - Ls[i] * ipt::kLog2e) : 0.f;
-      Ps[i][pj] = ipt::round_to<T>(p);
-      dSs[i][pj] = ipt::round_to<T>(p * (pdot - Dl[i]));
+      const float dp = drop.apply(pdot, Rk[i], k0 + pj);
+      Ps[i][pj] = ipt::round_to<T>(drop.apply(p, Rk[i], k0 + pj));
+      dSs[i][pj] = ipt::round_to<T>(p * (dp - Dl[i]));
     }
     __syncthreads();
 
@@ -161,14 +167,14 @@ template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
                    void* dq, void* dk, void* dv, int B, int T_len, int S_len,
-                   int H, cudaStream_t stream) {
+                   int H, ipt::Dropout drop, cudaStream_t stream) {
   dim3 grid((S_len + BK - 1) / BK, B * H);
   bwd_kernel<T, D><<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<float*>(dq), static_cast<T*>(dk), static_cast<T*>(dv),
-      T_len, S_len, H, 1.f / sqrtf((float)D));
+      T_len, S_len, H, 1.f / sqrtf((float)D), drop);
   return cudaGetLastError();
 }
 
@@ -176,20 +182,23 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 // q/dout (B, T, H*D), k/v (B, S, H*D), lse/delta (B, H, T) fp32, dq
 // (B, T, H*D) fp32 zero-filled by the caller, dk/dv like k; all contiguous.
-// Returns the CUDA error of the launch (0 on success).
+// Dropout arguments as flash_fwd's. Returns the CUDA error of the launch (0
+// on success).
 extern "C" int flash_bwd(const void* q, const void* k, const void* v,
                          const void* dout, const void* lse, const void* delta,
                          void* dq, void* dk, void* dv, int B, int T, int S,
-                         int H, int D, int dtype, void* stream) {
+                         int H, int D, int dtype, unsigned seed, unsigned threshold,
+                         float inv, int drop_on, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const ipt::Dropout drop{seed, threshold, inv, drop_on};
   if (T <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
   if (dtype == ipt::kFloat32 && D == 32)
-    return (int)launch<float, 32>(q, k, v, dout, lse, delta, dq, dk, dv, B, T, S, H, st);
+    return (int)launch<float, 32>(q, k, v, dout, lse, delta, dq, dk, dv, B, T, S, H, drop, st);
   if (dtype == ipt::kFloat32 && D == 64)
-    return (int)launch<float, 64>(q, k, v, dout, lse, delta, dq, dk, dv, B, T, S, H, st);
+    return (int)launch<float, 64>(q, k, v, dout, lse, delta, dq, dk, dv, B, T, S, H, drop, st);
   if (dtype == ipt::kBFloat16 && D == 32)
-    return (int)launch<__nv_bfloat16, 32>(q, k, v, dout, lse, delta, dq, dk, dv, B, T, S, H, st);
+    return (int)launch<__nv_bfloat16, 32>(q, k, v, dout, lse, delta, dq, dk, dv, B, T, S, H, drop, st);
   if (dtype == ipt::kBFloat16 && D == 64)
-    return (int)launch<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dq, dk, dv, B, T, S, H, st);
+    return (int)launch<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dq, dk, dv, B, T, S, H, drop, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -4,7 +4,10 @@
 // launched by `_fwd_impl`). It computes the same function: fp32 logits
 // q.k^T / sqrt(D), an fp32 softmax, P cast to v's dtype before P.V, the
 // 1/denominator folded into O, and the natural-log normaliser
-// L = m + log(sum exp) per (b, h, row) for the backward.
+// L = m + log(sum exp) per (b, h, row) for the backward. With dropout, each
+// P entry is multiplied by keep / (1 - rate) after the denominator has
+// taken it (`_fwd_kernel:123-131`); the keep bits are those of
+// csrc/dropout.cuh, hashed from (seed, b*H + h, row, col).
 //
 // Bound on the H100: at the fusion shape (B=1, H=8, T=S=2060, D=64) the work
 // is 4*B*H*T*S*D = 8.7 GFLOP over 8.4 MB of q/k/v/O, so it is bound by
@@ -24,6 +27,7 @@
 // lets fp32 inputs stay exact; tensor cores (mma/wgmma) and TMA are the
 // next step for speed.
 #include "common.cuh"
+#include "dropout.cuh"
 
 namespace {
 
@@ -38,7 +42,7 @@ __global__ void __launch_bounds__(THREADS)
 fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
            const T* __restrict__ v, T* __restrict__ o,
            float* __restrict__ lse, int t_len, int s_len, int heads,
-           float qscale) {
+           float qscale, ipt::Dropout drop) {
   constexpr int CPT = D / TPR;  // output columns per thread
   __shared__ float Ks[BK][D + 1];
   __shared__ float Vs[BK][D];
@@ -55,6 +59,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* qb = q + (size_t)b * t_len * ld + h * D;
   const T* kb = k + (size_t)b * s_len * ld + h * D;
   const T* vb = v + (size_t)b * s_len * ld + h * D;
+  const uint32_t rkey = ipt::row_key(drop.seed, bh, row);
 
   // q row pre-scaled by scale*log2(e): the softmax runs in base 2
   float qr[D];
@@ -100,8 +105,9 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int jj = 0; jj < KPT; ++jj) {
       const float p = exp2f(sc[jj] - m_new);
-      psum += p;
-      Ps[r][sub + TPR * jj] = ipt::round_to<T>(p);  // P in v's dtype for P.V
+      psum += p;  // the denominator is taken before dropout
+      // P (dropped and rescaled) in v's dtype for P.V
+      Ps[r][sub + TPR * jj] = ipt::round_to<T>(drop.apply(p, rkey, k0 + sub + TPR * jj));
     }
     psum += __shfl_xor_sync(0xffffffffu, psum, 1);
     psum += __shfl_xor_sync(0xffffffffu, psum, 2);
@@ -131,32 +137,35 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* lse, int B, int T_len, int S_len, int H,
-                   cudaStream_t stream) {
+                   ipt::Dropout drop, cudaStream_t stream) {
   const float qscale = ipt::kLog2e / sqrtf((float)D);
   dim3 grid((T_len + BQ - 1) / BQ, B * H);
   fwd_kernel<T, D><<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      T_len, S_len, H, qscale);
+      T_len, S_len, H, qscale, drop);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q (B, T, H*D), k/v (B, S, H*D), o like q, lse (B, H, T) fp32; all
-// contiguous. Returns the CUDA error of the launch (0 on success).
+// contiguous. Dropout: seed, keep threshold, 1 / (1 - rate), and whether it
+// is on. Returns the CUDA error of the launch (0 on success).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          void* lse, int B, int T, int S, int H, int D,
-                         int dtype, void* stream) {
+                         int dtype, unsigned seed, unsigned threshold, float inv,
+                         int drop_on, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const ipt::Dropout drop{seed, threshold, inv, drop_on};
   if (T <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
   if (dtype == ipt::kFloat32 && D == 32)
-    return (int)launch<float, 32>(q, k, v, o, lse, B, T, S, H, st);
+    return (int)launch<float, 32>(q, k, v, o, lse, B, T, S, H, drop, st);
   if (dtype == ipt::kFloat32 && D == 64)
-    return (int)launch<float, 64>(q, k, v, o, lse, B, T, S, H, st);
+    return (int)launch<float, 64>(q, k, v, o, lse, B, T, S, H, drop, st);
   if (dtype == ipt::kBFloat16 && D == 32)
-    return (int)launch<__nv_bfloat16, 32>(q, k, v, o, lse, B, T, S, H, st);
+    return (int)launch<__nv_bfloat16, 32>(q, k, v, o, lse, B, T, S, H, drop, st);
   if (dtype == ipt::kBFloat16 && D == 64)
-    return (int)launch<__nv_bfloat16, 64>(q, k, v, o, lse, B, T, S, H, st);
+    return (int)launch<__nv_bfloat16, 64>(q, k, v, o, lse, B, T, S, H, drop, st);
   return (int)cudaErrorInvalidValue;
 }

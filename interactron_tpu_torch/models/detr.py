@@ -33,11 +33,11 @@ class EncoderLayer(nn.Module):
         self.norm2 = LayerNorm(d_model)
         self.dropout = Dropout(dropout_rate)
 
-    def forward(self, src, pos):
+    def forward(self, src, pos, gen=None):
         q = src + pos
-        src = self.norm1(src + self.dropout(self.self_attn(q, q, src)))
-        ff = self.linear2(self.dropout(torch.relu(self.linear1(src))))
-        return self.norm2(src + self.dropout(ff))
+        src = self.norm1(src + self.dropout(self.self_attn(q, q, src, gen), gen))
+        ff = self.linear2(self.dropout(torch.relu(self.linear1(src)), gen))
+        return self.norm2(src + self.dropout(ff, gen))
 
 
 class DecoderLayer(nn.Module):
@@ -52,13 +52,13 @@ class DecoderLayer(nn.Module):
         self.norm3 = LayerNorm(d_model)
         self.dropout = Dropout(dropout_rate)
 
-    def forward(self, tgt, memory, query_pos, pos):
+    def forward(self, tgt, memory, query_pos, pos, gen=None):
         q = tgt + query_pos
-        tgt = self.norm1(tgt + self.dropout(self.self_attn(q, q, tgt)))
-        attn = self.cross_attn(tgt + query_pos, memory + pos, memory)
-        tgt = self.norm2(tgt + self.dropout(attn))
-        ff = self.linear2(self.dropout(torch.relu(self.linear1(tgt))))
-        return self.norm3(tgt + self.dropout(ff))
+        tgt = self.norm1(tgt + self.dropout(self.self_attn(q, q, tgt, gen), gen))
+        attn = self.cross_attn(tgt + query_pos, memory + pos, memory, gen)
+        tgt = self.norm2(tgt + self.dropout(attn, gen))
+        ff = self.linear2(self.dropout(torch.relu(self.linear1(tgt)), gen))
+        return self.norm3(tgt + self.dropout(ff, gen))
 
 
 class TransformerDecoderStack(nn.Module):
@@ -71,9 +71,9 @@ class TransformerDecoderStack(nn.Module):
                                                       dropout_rate, dtype))
         self.norm = LayerNorm(d_model)
 
-    def forward(self, tgt, memory, query_pos, pos):
+    def forward(self, tgt, memory, query_pos, pos, gen=None):
         for i in range(self.num_layers):
-            tgt = getattr(self, f"layer{i}")(tgt, memory, query_pos, pos)
+            tgt = getattr(self, f"layer{i}")(tgt, memory, query_pos, pos, gen)
         return self.norm(tgt)
 
 
@@ -100,6 +100,7 @@ class DETR(nn.Module):
     stage="frozen_prefix" returns the frozen stem+layer1 features (NCHW; the
     tiny backbone is fully trainable, so there the prefix is the NCHW
     input). stage="from_prefix" takes such a prefix and resumes from layer2.
+    With a generator `gen` the transformer's dropout is on (train mode).
     """
 
     def __init__(self, num_classes, num_queries=C.NUM_QUERIES, d_model=256, num_heads=8,
@@ -129,7 +130,7 @@ class DETR(nn.Module):
         with torch.no_grad():
             nn.init.normal_(self.query_embed, 0.0, 1.0, generator=gen)
 
-    def forward(self, images, stage="all"):
+    def forward(self, images, stage="all", gen=None):
         if stage not in ("all", "frozen_prefix", "from_prefix"):
             raise ValueError(f"unknown stage {stage!r}")
         x = images if stage == "from_prefix" else images.permute(0, 3, 1, 2)
@@ -149,10 +150,10 @@ class DETR(nn.Module):
 
         memory = src
         for i in range(self.num_encoder_layers):
-            memory = getattr(self, f"encoder_layer{i}")(memory, pos)
+            memory = getattr(self, f"encoder_layer{i}")(memory, pos, gen)
 
         query_pos = self.query_embed.to(self.dtype)[None].expand(b, -1, -1)
-        hs = self.decoder(torch.zeros_like(query_pos), memory, query_pos, pos)
+        hs = self.decoder(torch.zeros_like(query_pos), memory, query_pos, pos, gen)
         logits = self.class_embed(hs)
         boxes = torch.sigmoid(self.bbox_embed(hs).float())
         return {

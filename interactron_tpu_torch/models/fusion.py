@@ -34,17 +34,17 @@ class GPTBlock(nn.Module):
         self.mlp_proj = Dense(4 * embed_dim, embed_dim, dtype=dtype, kernel_init="normal02")
         self.dropout = Dropout(resid_pdrop)
 
-    def forward(self, x, q_len=None):
+    def forward(self, x, q_len=None, gen=None):
         """q_len: only the last q_len tokens are queries (keys and values stay
         full) and only those rows are returned. Exact for the final block,
         whose other outputs no head reads."""
         h = self.ln1(x)
         q_in = h if q_len is None else h[:, -q_len:]
-        h = self.attn(q_in, h, h)
-        x = (x if q_len is None else x[:, -q_len:]) + self.dropout(h)
+        h = self.attn(q_in, h, h, gen)
+        x = (x if q_len is None else x[:, -q_len:]) + self.dropout(h, gen)
         h = F.gelu(self.mlp_fc(self.ln2(x)), approximate="none")
         h = self.mlp_proj(h)
-        return x + self.dropout(h)
+        return x + self.dropout(h, gen)
 
 
 class DecodeHeads(nn.Module):
@@ -100,9 +100,9 @@ class FusionGPT(nn.Module):
                            x["pred_boxes"].to(dt)], dim=-1)
         return img, self.prediction_embedding(preds)
 
-    def forward(self, x):
+    def forward(self, x, gen=None):
         """x: dict of (b, s, ...) tensors `embedded_memory_features`,
-        `box_features`, `pred_logits`, `pred_boxes`."""
+        `box_features`, `pred_logits`, `pred_boxes`; dropout on with `gen`."""
         dt = self.dtype
         img, pred_emb = self._embed_inputs(x)
         b, s, p, e = pred_emb.shape
@@ -112,10 +112,10 @@ class FusionGPT(nn.Module):
         t = seq.shape[1]
         if t > self.seq_pos_embed.shape[0]:
             raise ValueError(f"{t} tokens exceed the block size {self.seq_pos_embed.shape[0]}")
-        h = self.dropout(seq + self.seq_pos_embed[None, :t].to(dt))
+        h = self.dropout(seq + self.seq_pos_embed[None, :t].to(dt), gen)
         out_len = n_preds + C.NUM_FRAMES  # the only positions the heads read
         for i in range(self.num_layers):
-            h = getattr(self, f"block{i}")(h, out_len if i == self.num_layers - 1 else None)
+            h = getattr(self, f"block{i}")(h, out_len if i == self.num_layers - 1 else None, gen)
         y = self.head(self.ln_f(h))
         y_preds = y[:, -out_len:-C.NUM_FRAMES].reshape(b, s, p, -1)
         y_actions = y[:, -C.NUM_FRAMES:-1].reshape(b, C.NUM_ACTIONS, -1)

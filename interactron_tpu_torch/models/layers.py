@@ -10,6 +10,10 @@ are neither parameters of the model nor part of the inner step.
 Each module with weights has `init_weights(gen)`, which draws them from an
 explicit `torch.Generator` with the JAX package's initialiser for that
 module (the draws differ, the distributions match).
+
+Dropout is on exactly when a forward is given a generator (`gen`), the
+counterpart of JAX's `deterministic=False` with a dropout rng; modules stay
+in eval mode throughout.
 """
 
 import math
@@ -19,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from interactron_tpu_torch.ops.attention import packed_attention
+from interactron_tpu_torch.ops.flash_attention import draw_seed, dropout_mask
 
 
 def variance_scaling_(t, scale, fan_in, gen):
@@ -170,23 +175,28 @@ class MLP(nn.Module):
 
 
 class Dropout(nn.Module):
-    """The reference's dropout: the identity in eval mode, the only mode of
-    the predict and next_action path. Training mode raises until the train
-    slice ports it."""
+    """Inverted dropout (<- `_dropout_mask_apply`): the identity without a
+    generator; with one, x * keep / (1 - rate), where keep is the kernels'
+    hash keyed by one seed drawn from `gen` and the element's (row, col) in
+    x viewed as (rows, last dim): P(keep) = 1 - rate with an integer
+    threshold, and the same bits on every device."""
 
     def __init__(self, rate):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x):
-        if not self.training or self.rate == 0.0:
+    def forward(self, x, gen=None):
+        if gen is None or self.rate == 0.0:
             return x
-        raise NotImplementedError("training dropout comes with the train slice")
+        cols = x.shape[-1]
+        keep = dropout_mask(draw_seed(gen), self.rate, (1, x.numel() // cols, cols), x.device)
+        return x * keep.view(x.shape) * (1.0 / (1.0 - self.rate))
 
 
 class MultiHeadAttention(nn.Module):
     """Torch-style MHA with separate q/k/v/out projections (with bias) and
-    an fp32 softmax over the packed head layout."""
+    an fp32 softmax over the packed head layout; attention dropout at
+    `dropout_rate` when a generator is given."""
 
     def __init__(self, embed_dim, num_heads, dropout_rate=0.0, dtype=torch.float32,
                  kernel_init="xavier"):
@@ -197,8 +207,7 @@ class MultiHeadAttention(nn.Module):
             self.add_module(name, Dense(embed_dim, embed_dim, dtype=dtype,
                                         kernel_init=kernel_init))
 
-    def forward(self, q, k, v):
-        rate = self.dropout_rate if self.training else 0.0
+    def forward(self, q, k, v, gen=None):
         out = packed_attention(self.q_proj(q), self.k_proj(k), self.v_proj(v),
-                               self.num_heads, rate)
+                               self.num_heads, self.dropout_rate, gen)
         return self.out_proj(out)

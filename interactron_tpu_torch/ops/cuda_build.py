@@ -3,9 +3,9 @@
 Each `csrc/<name>.cu` is compiled by its own `nvcc` for `sm_90a` into
 `build/torch_kernels/lib<name>-<hash>.so` at the repository root, with a
 plain C interface loaded through ctypes. The file name carries a hash of the
-source, so an edited source is rebuilt and a stale library is never loaded.
-Nothing is compiled at import time: the first kernel call (or `build_all`)
-does it.
+source and the shared headers, so an edited source is rebuilt and a stale
+library is never loaded. Nothing is compiled at import time: the first
+kernel call (or `build_all`) does it.
 """
 
 import ctypes
@@ -18,7 +18,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-SOURCES = ("flash_fwd", "flash_bwd")
+SOURCES = ("flash_fwd", "flash_bwd", "flash_so", "dropout_mask")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -34,7 +34,8 @@ def _nvcc():
 
 def _target(name):
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + (CSRC / "common.cuh").read_bytes())
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers)
     return src, BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

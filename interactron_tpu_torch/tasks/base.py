@@ -4,14 +4,17 @@ the tasks call.
 
 The model lives on `device`, which is CUDA unless the caller asks for the
 CPU; without CUDA a CUDA model raises instead of running on the CPU.
-Parameters are fp32 and never require grad: the inner step differentiates
-explicit copies of them (tasks/interactron.py).
+Parameters are fp32 and never require grad: predict's inner step and the
+train step differentiate explicit leaf copies of them, passed in through
+`functional_call` (tasks/interactron.py), and the trainer writes the
+gradients back (engine/trainer.py).
 """
 
 import torch
 from torch import nn
 from torch.func import functional_call
 
+from interactron_tpu_torch.models.criterion import set_criterion
 from interactron_tpu_torch.models.detr import DETR
 from interactron_tpu_torch.models.fusion import build_fusion
 from interactron_tpu_torch.utils import constants as C
@@ -50,6 +53,10 @@ class TaskModel(nn.Module):
             dtype=self.dtype,
         )
         self.fusion = build_fusion(config, self.dtype) if self.needs_fusion else None
+        self.num_classes = m.NUM_CLASSES
+        self.cost_class = float(m.get("SET_COST_CLASS", 1.0))
+        self.cost_bbox = float(m.get("SET_COST_BBOX", 5.0))
+        self.cost_giou = float(m.get("SET_COST_GIOU", 2.0))
         self.adaptive_lr = float(m.get("ADAPTIVE_LR", 1e-3))
         inner = m.get("INNER_DTYPE")
         # the inner step runs in the compute dtype unless that is fp32
@@ -85,14 +92,28 @@ class TaskModel(nn.Module):
         """Frozen stem+layer1 features (NCHW), shared by the detector passes."""
         return self.detector(images, stage="frozen_prefix")
 
-    def detr_apply(self, det_params, images, stage="all"):
+    def detr_apply(self, det_params, images, stage="all", gen=None):
         """The detector with `det_params` ({name: tensor}) in place of its
-        parameters, or its own parameters when `det_params` is None."""
+        parameters, or its own parameters when `det_params` is None; dropout
+        on when a generator `gen` is given."""
         if det_params is None:
-            return self.detector(images, stage=stage)
-        return functional_call(self.detector, det_params, (images,), {"stage": stage})
+            return self.detector(images, stage=stage, gen=gen)
+        return functional_call(self.detector, det_params, (images,),
+                               {"stage": stage, "gen": gen})
 
-    def fusion_apply(self, detr_out):
-        """Per-frame detector outputs (s, ...) -> fusion with batch dim 1."""
+    def fusion_apply(self, detr_out, fus_params=None, gen=None):
+        """Per-frame detector outputs (s, ...) -> fusion with batch dim 1,
+        with `fus_params` in place of its parameters when given."""
         keys = ("embedded_memory_features", "box_features", "pred_logits", "pred_boxes")
-        return self.fusion({k: detr_out[k][None] for k in keys})
+        x = {k: detr_out[k][None] for k in keys}
+        if fus_params is None:
+            return self.fusion(x, gen=gen)
+        return functional_call(self.fusion, fus_params, (x,), {"gen": gen})
+
+    def criterion(self, outputs, targets, **kw):
+        """models/criterion.py::set_criterion with the config's matcher costs."""
+        kw.setdefault("num_classes", self.num_classes)
+        kw.setdefault("cost_class", self.cost_class)
+        kw.setdefault("cost_bbox", self.cost_bbox)
+        kw.setdefault("cost_giou", self.cost_giou)
+        return set_criterion(outputs, targets, **kw)

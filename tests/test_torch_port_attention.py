@@ -76,7 +76,7 @@ def test_packed_attention_matches_jax(t, s, hd):
     tfa.reset_launches()
     out = tattn.packed_attention(tq, tk, tv, h)
     (out * torch.from_numpy(w)).sum().backward()
-    assert tfa.launches == {"flash_fwd": 0, "flash_bwd": 0}
+    assert all(n == 0 for n in tfa.launches.values())
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), atol=2e-5)
     for got, g in zip((tq.grad, tk.grad, tv.grad), want_g):
         np.testing.assert_allclose(got.numpy(), np.asarray(g), atol=5e-5)
@@ -91,7 +91,7 @@ def test_autograd_function_uses_plain_versions_on_cpu():
     tfa.reset_launches()
     out = tfa.FlashAttention.apply(tq, tk, tv, h)
     out.backward(do)
-    assert tfa.launches == {"flash_fwd": 0, "flash_bwd": 0}
+    assert all(n == 0 for n in tfa.launches.values())
     o, lse = tfa.flash_fwd_plain(tq.detach(), tk.detach(), tv.detach(), h)
     assert torch.equal(out.detach(), o)
     for got, want in zip((tq.grad, tk.grad, tv.grad),
@@ -101,8 +101,9 @@ def test_autograd_function_uses_plain_versions_on_cpu():
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
     x = torch.zeros(1, 8, 64)
-    with pytest.raises(NotImplementedError):
-        tfa.flash_fwd(x, x, x, 2, rate=0.1)
+    for rate in (1.0, 1.5, -0.1):  # dropout needs 0 <= rate < 1
+        with pytest.raises(ValueError):
+            tfa.flash_fwd(x, x, x, 2, rate=rate)
     with pytest.raises(ValueError):
         tfa.flash_fwd(x, x, x, 4)  # head dim 16
     with pytest.raises(ValueError):
@@ -118,28 +119,3 @@ def test_kernel_module_imports_without_nvcc(tmp_path):
             "interactron_tpu_torch.ops.cuda_build as cb; assert cb._loaded == {}")
     env = dict(os.environ, PATH=str(tmp_path), PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
     subprocess.run([sys.executable, "-c", code], check=True, env=env, cwd=REPO, timeout=120)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("b,t,s,hd", [(5, 361, 361, 32), (1, 255, 2060, 64)])
-def test_kernels_match_plain_on_cuda(b, t, s, hd, dtype):
-    """Kernel vs plain on the card (bf16: plain in fp32 on the same
-    bf16-rounded inputs; tolerance 2e-2 x max|ref| for bf16 rounding of O,
-    P and dS, 1e-4 x max|ref| in fp32 for summation order and the
-    unordered dQ atomics)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device and nvcc")
-    h = 8
-    dt = getattr(torch, dtype)
-    rel = 2e-2 if dt == torch.bfloat16 else 1e-4
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v, do = (torch.randn((b, n, h * hd), device="cuda", generator=gen).to(dt)
-                   for n in (t, s, s, t))
-    q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
-    o_ref, lse_ref = tfa.flash_fwd_plain(q32, k32, v32, h)
-    refs = (o_ref, lse_ref, *tfa.flash_bwd_plain(q32, k32, v32, o_ref, lse_ref, do32, h))
-    o, lse = tfa.flash_fwd(q, k, v, h)
-    got = (o, lse, *tfa.flash_bwd(q, k, v, o, lse, do, h))
-    for g, r in zip(got, refs):
-        assert (g.float() - r).abs().max().item() <= rel * r.abs().max().item()
