@@ -11,7 +11,8 @@ Phases, each of which fails the run (non-zero exit, no "ok" line):
      fp32 and bf16, at dropout rate 0 and 0.1 (the mask kernel bit for bit),
      with its time beside the plain version's, one PyTorch library call's
      where one computes the same function (F.scaled_dot_product_attention, a
-     yardstick only) and the bound (see `bound_ms`);
+     yardstick only) and the bound (see `bound_ms`); the split formulation's
+     kernels also against the merged ones, and twice with equal outputs;
   4. full-width fp32 `predict` of configs/interactron.yaml (seed 0): the card
      against the CPU, which runs the plain versions;
   5. the served path in bf16: 4 episodes of next_action at s=1..4 and then
@@ -23,11 +24,19 @@ Phases, each of which fails the run (non-zero exit, no "ok" line):
   8. bf16 training: 3 optimizer steps of 4 episodes (the config's batch of
      16 cut to 4 for time), dropout at the config's rates, with the launch
      counters checked against the counts the train path must make;
-  9. device time by kernel over one bf16 train step (torch.profiler).
+  9. device time by kernel over one bf16 train step (torch.profiler);
+ 10. the split formulation (FLASH_BWD=split SO_MERGED=0): fp32 split vs
+     merged on the card (inner gradient, second-order probe, one train
+     episode); bf16 served episodes and train steps with their launch counts;
+     one served episode with FLASH_DKV=blocked; a profiled train step.
+Phases 1-9 run the default (merged) formulation: the switches are cleared
+first.
 Prints the kernels' JSON line, then {"ok": true, "device": {...}} last.
 """
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -54,7 +63,7 @@ SHAPES = [
 # max abs error allowed, as a multiple of the reference's max abs value
 TOL = {
     torch.float32: (1e-4, "fp32 in and out: summation order, exp2f of pre-scaled logits, "
-                          "and dQ atomics in no fixed order"),
+                          "and the merged kernels' atomics in no fixed order"),
     torch.bfloat16: (2e-2, "outputs rounded to bf16 (2^-8 relative), P rounded to bf16 before "
                            "P.V and dV, dS before dK and dQ; reference is fp32 on the same "
                            "bf16 inputs"),
@@ -96,19 +105,27 @@ def bound_ms(flops, nbytes, int_ops=0.0):
 
 
 def bounds(b, t, s, h, d, elt, rate=0.0):
-    """Least times (ms, by) of the forward, the merged backward and the
-    second-order kernel; with dropout each needs one keep bit per (T, S)
-    element of every head."""
+    """Least times (ms, by) of every attention kernel; with dropout each
+    needs one keep bit per (T, S) element of every head. FLOPs are 2 per
+    multiply-add of the (T x S x D) products each kernel must form."""
     qo, kv, rows = b * t * h * d, b * s * h * d, b * h * t
     hash_ops = HASH_OPS * b * h * t * s if rate > 0 else 0.0
-    fwd_flops = 4.0 * b * h * t * s * d
+    prod = 2.0 * b * h * t * s * d  # one (T x S x D) product
     return {
-        "fwd": bound_ms(fwd_flops, (2 * qo + 2 * kv) * elt + rows * 4, hash_ops),
-        # in: q k v O dO L; out: dq dk dv
-        "bwd": bound_ms(2.5 * fwd_flops, (4 * qo + 4 * kv) * elt + rows * 4, hash_ops),
-        # twelve T x S x D products; in: q dO A k v Bc C L D, out: c_q c_dO c_k c_v
-        "so": bound_ms(24.0 * b * h * t * s * d, (5 * qo + 6 * kv) * elt + 2 * rows * 4,
-                       hash_ops),
+        # two products; in: q k v, out: O L
+        "fwd": bound_ms(2 * prod, (2 * qo + 2 * kv) * elt + rows * 4, hash_ops),
+        # five products; in: q k v O dO L, out: dq dk dv
+        "bwd": bound_ms(5 * prod, (4 * qo + 4 * kv) * elt + rows * 4, hash_ops),
+        # three products; in: q k v dO L D, out: dq
+        "dq": bound_ms(3 * prod, (3 * qo + 2 * kv) * elt + 2 * rows * 4, hash_ops),
+        # four products; in: q k v dO L D, out: dk dv
+        "dkv": bound_ms(4 * prod, (2 * qo + 4 * kv) * elt + 2 * rows * 4, hash_ops),
+        # twelve products; in: q dO A k v Bc C L D, out: c_q c_dO c_k c_v
+        "so": bound_ms(12 * prod, (5 * qo + 6 * kv) * elt + 2 * rows * 4, hash_ops),
+        # nine products; in: q dO A k v Bc C L D, out: c_q c_dO g_D s_gp
+        "so_row": bound_ms(9 * prod, (5 * qo + 4 * kv) * elt + 4 * rows * 4, hash_ops),
+        # eight products; in: q dO A k v Bc C L D g_D s_gp, out: c_k c_v
+        "so_col": bound_ms(8 * prod, (3 * qo + 6 * kv) * elt + 4 * rows * 4, hash_ops),
     }
 
 
@@ -131,8 +148,9 @@ def _check_errs(label, pairs, rel, why):
 
 
 def check_kernels(fa):
-    """Phase 3: kernel vs plain on the card at the paths' shapes. Returns
-    {(shape, dtype, rate): entry} with the errors, and in bf16 the times."""
+    """Phase 3: kernel vs plain on the card at the paths' shapes, and the
+    split formulation's kernels vs the merged ones. Returns {(shape, dtype,
+    rate): entry} with the errors, and in bf16 the times."""
     results = {}
     gen = torch.Generator(device="cuda").manual_seed(0)
     for name, b, t, s, h, d in SHAPES:
@@ -146,13 +164,26 @@ def check_kernels(fa):
                 drop = (rate, seed)
                 o_ref, lse_ref = fa.flash_fwd_plain(*f32[:3], h, *drop)
                 delta_ref = fa._delta(f32[3], o_ref, h)
-                bwd_ref = fa.flash_bwd_plain(*f32[:3], o_ref, lse_ref, f32[3], h, *drop)
-                so_ref = fa.flash_so_plain(*f32, lse_ref, delta_ref, h, *drop)
+                res_ref = (o_ref, lse_ref, f32[3], h, *drop)
+                bwd_ref = fa.flash_bwd_plain(*f32[:3], *res_ref)
+                dq_ref = fa.flash_dq_plain(*f32[:3], *res_ref)
+                dkv_ref = fa.flash_dkv_plain(*f32[:3], *res_ref)
+                so_in_ref = (*f32, lse_ref, delta_ref)
+                so_ref = fa.flash_so_plain(*so_in_ref, h, *drop)
+                row_ref = fa.flash_so_row_plain(*so_in_ref, h, *drop)
+                col_ref = fa.flash_so_col_plain(*so_in_ref, *row_ref[2:], h, *drop)
                 o, lse = fa.flash_fwd(q, k, v, h, *drop)
-                bwd = fa.flash_bwd(q, k, v, o, lse, do, h, *drop)
-                # the second-order kernel on the plain version's L and D, so
-                # that its check is of it alone
-                so = fa.flash_so(q, k, v, do, a, bc, c, lse_ref, delta_ref, h, *drop)
+                res = (o, lse, do, h, *drop)
+                bwd = fa.flash_bwd(q, k, v, *res)
+                dq = fa.flash_dq(q, k, v, *res)
+                dkv = fa.flash_dkv(q, k, v, *res)
+                # the second-order kernels on the plain version's L, D and
+                # row statistics, so that each check is of one kernel alone
+                so_in = (q, k, v, do, a, bc, c, lse_ref, delta_ref)
+                so = fa.flash_so(*so_in, h, *drop)
+                row = fa.flash_so_row(*so_in, h, *drop)
+                col = fa.flash_so_col(*so_in, *row_ref[2:], h, *drop)
+                col_own = fa.flash_so_col(*so_in, *row[2:], h, *drop)
                 qg, kg, vg = (x.clone().requires_grad_(True) for x in (q, k, v))
                 og = fa.FlashAttention.apply(qg, kg, vg, h, *drop)
                 og.backward(do)
@@ -162,23 +193,54 @@ def check_kernels(fa):
                     ("O", o, o_ref), ("O_autograd", og, o_ref), ("L", lse, lse_ref),
                     ("dq", bwd[0], bwd_ref[0]), ("dk", bwd[1], bwd_ref[1]),
                     ("dv", bwd[2], bwd_ref[2]), ("dq_autograd", qg.grad, bwd_ref[0]),
+                    ("dq_split", dq, dq_ref), ("dk_split", dkv[0], dkv_ref[0]),
+                    ("dv_split", dkv[1], dkv_ref[1]),
                     ("c_q", so[0], so_ref[0]), ("c_k", so[1], so_ref[1]),
-                    ("c_v", so[2], so_ref[2]), ("c_dO", so[3], so_ref[3])), rel, why)
+                    ("c_v", so[2], so_ref[2]), ("c_dO", so[3], so_ref[3]),
+                    ("c_q_row", row[0], row_ref[0]), ("c_dO_row", row[1], row_ref[1]),
+                    ("g_D", row[2], row_ref[2]), ("s_gp", row[3], row_ref[3]),
+                    ("c_k_col", col[0], col_ref[0]), ("c_v_col", col[1], col_ref[1])), rel, why)
+                # the split composition against the merged kernels
+                _check_errs(label + " split vs merged", (
+                    ("dq", dq, bwd[0].float()), ("dk", dkv[0], bwd[1].float()),
+                    ("dv", dkv[1], bwd[2].float()), ("c_q", row[0], so[0].float()),
+                    ("c_k", col_own[0], so[1].float()), ("c_v", col_own[1], so[2].float()),
+                    ("c_dO", row[1], so[3].float())), rel, why)
                 entry = {"errs": errs}
+                if name == "fusion" and dtype == torch.bfloat16 and rate > 0:
+                    again = (fa.flash_dq(q, k, v, *res), *fa.flash_dkv(q, k, v, *res),
+                             *fa.flash_so_row(*so_in, h, *drop),
+                             *fa.flash_so_col(*so_in, *row_ref[2:], h, *drop))
+                    same = [torch.equal(x, y) for x, y in zip(again, (dq, *dkv, *row, *col))]
+                    log(f"  {label} split kernels run twice, torch.equal per output: {same}")
+                    if not all(same):
+                        raise AssertionError(f"split kernels not reproducible: {same}")
                 if dtype == torch.bfloat16:
-                    entry.update(
-                        fwd_ms=cuda_ms(lambda: fa.flash_fwd(q, k, v, h, *drop)),
-                        fwd_plain_ms=cuda_ms(lambda: fa.flash_fwd_plain(q, k, v, h, *drop)),
-                        bwd_ms=cuda_ms(lambda: fa.flash_bwd(q, k, v, o, lse, do, h, *drop)),
-                        bwd_plain_ms=cuda_ms(
-                            lambda: fa.flash_bwd_plain(q, k, v, o, lse, do, h, *drop)),
-                        so_ms=cuda_ms(lambda: fa.flash_so(q, k, v, do, a, bc, c, lse, delta_ref,
-                                                          h, *drop)),
-                        so_plain_ms=cuda_ms(lambda: fa.flash_so_plain(
-                            q, k, v, do, a, bc, c, lse, delta_ref, h, *drop)),
-                        so_library_ms=None)
+                    row_stats = row_ref[2:]
+                    timed = {
+                        "fwd": (lambda: fa.flash_fwd(q, k, v, h, *drop),
+                                lambda: fa.flash_fwd_plain(q, k, v, h, *drop)),
+                        "bwd": (lambda: fa.flash_bwd(q, k, v, *res),
+                                lambda: fa.flash_bwd_plain(q, k, v, *res)),
+                        "dq": (lambda: fa.flash_dq(q, k, v, *res),
+                               lambda: fa.flash_dq_plain(q, k, v, *res)),
+                        "dkv": (lambda: fa.flash_dkv(q, k, v, *res),
+                                lambda: fa.flash_dkv_plain(q, k, v, *res)),
+                        "so": (lambda: fa.flash_so(*so_in, h, *drop),
+                               lambda: fa.flash_so_plain(*so_in, h, *drop)),
+                        "so_row": (lambda: fa.flash_so_row(*so_in, h, *drop),
+                                   lambda: fa.flash_so_row_plain(*so_in, h, *drop)),
+                        "so_col": (lambda: fa.flash_so_col(*so_in, *row_stats, h, *drop),
+                                   lambda: fa.flash_so_col_plain(*so_in, *row_stats, h, *drop)),
+                    }
+                    for kn, (kern, plain) in timed.items():
+                        entry[f"{kn}_ms"] = cuda_ms(kern)
+                        entry[f"{kn}_plain_ms"] = cuda_ms(plain)
+                        entry[f"{kn}_library_ms"] = None
                     if rate == 0.0:
-                        # SDPA has no dropout mask of ours and no double backward
+                        # SDPA has no dropout mask of ours and no double backward;
+                        # its backward forms dq, dk and dv together, the yardstick
+                        # of flash_bwd and of the flash_dq + flash_dkv pair
                         heads = lambda x, n: x.view(b, n, h, d).transpose(1, 2)
                         qh, kh, vh = heads(q, t), heads(k, s), heads(v, s)
                         entry["fwd_library_ms"] = cuda_ms(
@@ -189,13 +251,14 @@ def check_kernels(fa):
                         doh = heads(do, t)
                         entry["bwd_library_ms"] = cuda_ms(
                             lambda: torch.autograd.grad(ol, (ql, kl, vl), doh, retain_graph=True))
+                        entry["dq_library_ms"] = entry["dkv_library_ms"] = entry["bwd_library_ms"]
                     for kname, (bms, by) in bounds(b, t, s, h, d, 2, rate).items():
                         entry[f"{kname}_bound_ms"], entry[f"{kname}_bound_by"] = bms, by
                     log(f"  {label} times (ms): " + " | ".join(
                         f"{kn} {entry[kn + '_ms']:.4f} plain {entry[kn + '_plain_ms']:.4f} "
-                        f"lib {entry.get(kn + '_library_ms') or float('nan'):.4f} bound "
+                        f"lib {entry[kn + '_library_ms'] or float('nan'):.4f} bound "
                         f"{entry[kn + '_bound_ms']:.4f} ({entry[kn + '_bound_by']})"
-                        for kn in ("fwd", "bwd", "so")))
+                        for kn in timed))
                 results[(name, dtype, rate)] = entry
 
         # the keep mask of the shape's (B*H, T, S) region, bit for bit
@@ -315,7 +378,22 @@ def full_width_parity(config_dict, Task, Config, weights):
             raise AssertionError(f"full-width {name}: {err} > {tol}")
 
 
-def expected_launches(C):
+def _formulated(counts, split):
+    """Launch counts of the merged formulation -> those of `split`'s: each
+    merged backward becomes flash_dq + flash_dkv, each merged second-order
+    launch flash_so_row + flash_so_col."""
+    out = {"flash_fwd": counts["flash_fwd"], "flash_bwd": 0, "flash_dq": 0, "flash_dkv": 0,
+           "flash_so": 0, "flash_so_row": 0, "flash_so_col": 0,
+           "dropout_mask": counts["dropout_mask"]}
+    if split:
+        out.update(flash_dq=counts["flash_bwd"], flash_dkv=counts["flash_bwd"],
+                   flash_so_row=counts["flash_so"], flash_so_col=counts["flash_so"])
+    else:
+        out.update(flash_bwd=counts["flash_bwd"], flash_so=counts["flash_so"])
+    return out
+
+
+def expected_launches(C, split=False):
     """Kernel launches of one episode of next_action at s=1..4 + predict, read
     from the gates of ops/attention.py (hd>=32, s>=256, t>=128)."""
     enc = 6  # DETR encoder layers: t=s=361
@@ -324,11 +402,13 @@ def expected_launches(C):
         # 3 full fusion blocks, and the last (pruned to s*50+5 queries) from s=3
         fwd += enc + 3 + (1 if s * C.NUM_QUERIES + C.NUM_FRAMES >= 128 else 0)
     fwd += enc + 4 + enc  # predict: inner forward, then the frame-0 detect
-    return {"flash_fwd": fwd, "flash_bwd": enc + 4, "flash_so": 0, "dropout_mask": 0}
+    return _formulated({"flash_fwd": fwd, "flash_bwd": enc + 4, "flash_so": 0,
+                        "dropout_mask": 0}, split)
 
 
-def served_path(model, fa, C, episodes=EPISODES):
-    """Phase 5: the lockstep evaluator's order, one episode at a time."""
+def served_path(model, fa, C, episodes=EPISODES, split=False):
+    """Phase 5 (and 10): the lockstep evaluator's order, one episode at a
+    time, in the merged or the split formulation."""
     fa.reset_launches()
     na_ms, pr_ms = [], []
     for e in range(episodes):
@@ -351,7 +431,7 @@ def served_path(model, fa, C, episodes=EPISODES):
             if tuple(pred[key].shape) != shape or not torch.isfinite(pred[key]).all():
                 raise AssertionError(f"{key}: shape {tuple(pred[key].shape)} or non-finite")
     counts = dict(fa.launches)
-    want = {k: n * episodes for k, n in expected_launches(C).items()}
+    want = {k: n * episodes for k, n in expected_launches(C, split).items()}
     log(f"  launches on the served path: {counts} (expected {want})")
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want}")
@@ -380,8 +460,13 @@ def profile_run(fn):
     busy = sum(t for _, t in by_name.values())
     log(f"  wall {wall_ms:.2f} ms, device kernels {busy:.2f} ms in {len(kernels)} launches, "
         f"idle share {1 - busy / wall_ms:.3f} (profiler on)")
+    # substring matches; no kernel name contains another's
     groups = {"flash_fwd (fwd_kernel)": ("fwd_kernel",), "flash_bwd (bwd_kernel)": ("bwd_kernel",),
-              "flash_so (so_kernel)": ("so_kernel",), "dropout_mask (mask_kernel)": ("mask_kernel",),
+              "flash_dq (dq_kernel)": ("dq_kernel",), "flash_dkv (dkv_kernel)": ("dkv_kernel",),
+              "flash_so (so_kernel)": ("so_kernel",),
+              "flash_so_row (sov_row_kernel)": ("sov_row_kernel",),
+              "flash_so_col (sov_col_kernel)": ("sov_col_kernel",),
+              "dropout_mask (mask_kernel)": ("mask_kernel",),
               "convolution (cuDNN and friends)": ("conv", "cudnn", "implicit", "xmma", "sm90_",
                                                   "wgrad", "dgrad", "fprop")}
     for gname, keys in groups.items():
@@ -489,7 +574,7 @@ def train_parity(config_dict, Task, Config, weights, C):
             raise AssertionError(f"train step metric {k}: {err} > {tol}")
 
 
-def expected_train_launches(m):
+def expected_train_launches(m, split=False):
     """Kernel launches of one train episode, read from the gates of
     ops/attention.py. The inner closure's attentions past the second-order
     gates (the DETR encoder's and every fusion block's; the decoder's 50
@@ -503,13 +588,16 @@ def expected_train_launches(m):
     the embedding's and 2 a block."""
     enc, dec = int(m.get("NUM_ENCODER_LAYERS", 6)), int(m.get("NUM_DECODER_LAYERS", 6))
     inner = enc + int(m.NUM_LAYERS)
-    return {"flash_fwd": 4 * inner + 2 * enc, "flash_bwd": 2 * inner + 2 * enc,
-            "flash_so": inner, "dropout_mask": 3 * (3 * enc + 6 * dec) + 1 + 2 * int(m.NUM_LAYERS)}
+    return _formulated({"flash_fwd": 4 * inner + 2 * enc, "flash_bwd": 2 * inner + 2 * enc,
+                        "flash_so": inner,
+                        "dropout_mask": 3 * (3 * enc + 6 * dec) + 1 + 2 * int(m.NUM_LAYERS)},
+                       split)
 
 
-def train_bf16(model, fa, C, Trainer, steps=3, episodes=4):
-    """Phase 8: `steps` optimizer steps of `episodes` episodes in bf16 with
-    dropout on. Returns (launch counts, ms per step, the profile batch)."""
+def train_bf16(model, fa, C, Trainer, steps=3, episodes=4, split=False):
+    """Phase 8 (and 10): `steps` optimizer steps of `episodes` episodes in
+    bf16 with dropout on, in the merged or the split formulation. Returns
+    (launch counts, ms per step, the trainer, the profile batch)."""
     cfg = model.config
     trainer = Trainer(model, cfg, path_rows=64)
     gen = torch.Generator().manual_seed(0)
@@ -529,7 +617,8 @@ def train_bf16(model, fa, C, Trainer, steps=3, episodes=4):
         if not all(np.isfinite(v) for v in metrics.values()):
             raise AssertionError(f"non-finite metrics at step {i}: {metrics}")
     counts = dict(fa.launches)
-    want = {k: n * steps * episodes for k, n in expected_train_launches(cfg.MODEL).items()}
+    want = {k: n * steps * episodes
+            for k, n in expected_train_launches(cfg.MODEL, split).items()}
     log(f"  launches on the train path: {counts} (expected {want})")
     if counts != want:
         raise AssertionError(f"train launch counts {counts} != {want}")
@@ -539,6 +628,81 @@ def train_bf16(model, fa, C, Trainer, steps=3, episodes=4):
         if moved == 0:
             raise AssertionError(f"no {grp} parameter moved")
     return counts, step_ms, trainer, batches[0]
+
+
+SPLIT = {"FLASH_BWD": "split", "SO_MERGED": "0"}
+
+
+@contextlib.contextmanager
+def switches(**env):
+    """Set the backward-formulation switches in os.environ (the port reads
+    them at each call) and restore them afterwards."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def split_parity(config_dict, Task, Config, weights, C, fa):
+    """Phase 10a: fp32 on the card, the split formulation against the merged
+    one on the same weights and episode: predict's inner gradient g, the
+    second-order probe, and one episode of the train step with dropout on
+    (both formulations draw the same masks). As in phases 4 and 7, each is
+    held against 10x the merged run's own change when the frames move by
+    1e-6 relative; the losses also to 1e-4 relative."""
+    cfg = json.loads(json.dumps(config_dict))
+    cfg["MODEL"]["DTYPE"] = "float32"
+    batch = synthetic_batch(7, 1, cfg["MODEL"]["NUM_CLASSES"], C)
+    noise = np.random.RandomState(2).randn(*batch["frames"].shape).astype(np.float32)
+    moved = dict(batch, frames=batch["frames"] * (1 + 1e-6 * noise))
+    model = Task(Config(cfg), device="cuda").load_weights(weights)
+    cpu = lambda d: {n: x.cpu() for n, x in d.items()}
+
+    def run(b):
+        _, g, _ = model.adapt({"frames": b["frames"]})
+        probe = second_order_probe(model, b["frames"][0:1])
+        grads, m, _ = model.grads_and_metrics(b, torch.Generator().manual_seed(11),
+                                              model.init_path_state(4), train=True,
+                                              frame_index=[2])
+        return {"inner gradient g": cpu(g), "second-order probe (fusion)": probe,
+                "train step detector gradient": cpu(grads["detector"]),
+                "train step fusion gradient": cpu(grads["fusion"])}, m
+
+    fa_launches = {}
+    res = {}
+    for key, b, env in (("merged", batch, {}), ("moved", moved, {}), ("split", batch, SPLIT)):
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        with switches(**env):
+            res[key] = run(b)
+        torch.cuda.synchronize()
+        fa_launches[key] = {k: n for k, n in fa.launches.items() if n}
+        log(f"  {key}: {time.perf_counter() - t0:.1f} s, launches {fa_launches[key]}")
+    if fa_launches["split"].get("flash_bwd") or fa_launches["split"].get("flash_so"):
+        raise AssertionError(f"split run launched merged kernels: {fa_launches['split']}")
+    norm = lambda d: sum(torch.sum(x.double() ** 2) for x in d.values()).sqrt().item()
+    (gm, mm), (gv, mv), (gs, ms) = res["merged"], res["moved"], res["split"]
+    for label in gm:
+        err = norm({n: gs[label][n] - gm[label][n] for n in gm[label]}) / norm(gm[label])
+        sens = norm({n: gv[label][n] - gm[label][n] for n in gm[label]}) / norm(gm[label])
+        log(f"  fp32 split vs merged: {label} ||split - merged|| / ||merged|| = {err:.3e} "
+            f"tol={10 * sens:.3e} (10 x the merged run's own change, {sens:.3e}, when the "
+            f"frames move by 1e-6 relative)")
+        if not err <= 10 * sens:
+            raise AssertionError(f"split vs merged {label}: {err} > {10 * sens}")
+    for k in mm:
+        if "loss" in k or k == "policy_reward":
+            err, tol = abs(ms[k] - mm[k]), max(1e-4 * abs(mm[k]), 10 * abs(mv[k] - mm[k]))
+            log(f"  fp32 split vs merged metric {k}: split {ms[k]:.6f} merged {mm[k]:.6f} "
+                f"err={err:.3e} tol={tol:.3e} (max of 1e-4 x |merged| and 10 x its own change)")
+            if not err <= tol:
+                raise AssertionError(f"split vs merged metric {k}: {err} > {tol}")
 
 
 def main():
@@ -556,6 +720,8 @@ def main():
         print(f"chip_smoke: run from the repository root ({exc})", file=sys.stderr)
         return 1
 
+    for key in ("FLASH_BWD", "FLASH_DKV", "SO_MERGED"):
+        os.environ.pop(key, None)  # phases 1-9 run the default (merged) formulation
     t_start = time.perf_counter()
     card = device_line()
     log(f"[1] device: {card}")
@@ -609,20 +775,53 @@ def main():
     gen = torch.Generator().manual_seed(1)
     profile_run(lambda: trainer.train_step(batch, gen))
 
+    del model, trainer
+    t10 = time.perf_counter()
+    log("[10] the split formulation: FLASH_BWD=split SO_MERGED=0")
+    log("  (a) fp32 on the card, split vs merged")
+    split_parity(cfg_dict, InteractronTask, Config, weights, C, fa)
+    log("  (b) bf16 at full width, split")
+    model = InteractronTask(Config(cfg_dict), device="cuda").load_weights(weights)
+    with switches(**SPLIT):
+        log(f"  formulation {fa.formulation()}")
+        split_counts, na_ms, pr_ms = served_path(model, fa, C, split=True)
+        split_train_counts, step_ms, trainer, batch = train_bf16(model, fa, C, Trainer,
+                                                                 split=True)
+        steady, steady_step = pr_ms[1:], step_ms[1:]
+        log(f"  split predict: {1e3 / np.mean(steady):.3f} episodes/s ({np.mean(steady):.2f} ms "
+            f"each after the first); next_action median {np.median(na_ms[4:]):.2f} ms; train: "
+            f"{4e3 / np.mean(steady_step):.3f} episodes/s ({np.mean(steady_step):.1f} ms per step "
+            f"of 4 episodes after the first); card: {card}")
+        with switches(FLASH_DKV="blocked"):
+            log(f"  (c) one served episode, formulation {fa.formulation()}")
+            blocked_counts, _, _ = served_path(model, fa, C, episodes=1, split=True)
+        log("  (d) where the time goes: one split bf16 train step of 4 episodes under "
+            "torch.profiler")
+        gen = torch.Generator().manual_seed(1)
+        profile_run(lambda: trainer.train_step(batch, gen))
+    log(f"  phase 10 took {time.perf_counter() - t10:.1f} s")
+
+    paths = {"served": counts, "train": train_counts, "served_split": split_counts,
+             "train_split": split_train_counts, "served_split_dkv_blocked": blocked_counts}
     kernels = []
     at = "fusion B=1 T=S=2060 H=8 D=64 bf16"
-    for kname, key, src, replaces in (
-        ("flash_fwd", "fwd", "interactron_tpu_torch/csrc/flash_fwd.cu",
-         "interactron_tpu/ops/flash_attention.py:92"),
-        ("flash_bwd", "bwd", "interactron_tpu_torch/csrc/flash_bwd.cu",
-         "interactron_tpu/ops/flash_attention.py:299"),
-        ("flash_so", "so", "interactron_tpu_torch/csrc/flash_so.cu",
-         "interactron_tpu/ops/flash_attention.py:969"),
-        ("dropout_mask", "mask", "interactron_tpu_torch/csrc/dropout_mask.cu",
-         "interactron_tpu/ops/flash_attention.py:640"),
+    tpu = "interactron_tpu/ops/flash_attention.py"
+    library = {"fwd": "F.scaled_dot_product_attention",
+               "bwd": "SDPA's autograd backward",
+               "dq": "SDPA's autograd backward (dq, dk, dv together: the flash_dq + flash_dkv "
+                     "pair's yardstick)"}
+    library["dkv"] = library["dq"]
+    for kname, key, replaces, errs in (
+        ("flash_fwd", "fwd", f"{tpu}:92", ("O", "L")),
+        ("flash_bwd", "bwd", f"{tpu}:299", ("dq", "dk", "dv")),
+        ("flash_dq", "dq", f"{tpu}:138", ("dq_split",)),
+        ("flash_dkv", "dkv", f"{tpu}:242 (_dkv_kernel_fullt) and {tpu}:175 (_dkv_kernel)",
+         ("dk_split", "dv_split")),
+        ("flash_so", "so", f"{tpu}:969", ("c_q", "c_k", "c_v", "c_dO")),
+        ("flash_so_row", "so_row", f"{tpu}:791", ("c_q_row", "c_dO_row", "g_D", "s_gp")),
+        ("flash_so_col", "so_col", f"{tpu}:867", ("c_k_col", "c_v_col")),
+        ("dropout_mask", "mask", f"{tpu}:640", ("mask",)),
     ):
-        errs = {"fwd": ("O", "L"), "bwd": ("dq", "dk", "dv"), "so": ("c_q", "c_k", "c_v", "c_dO"),
-                "mask": ("mask",)}[key]
         top = kres[("fusion", "mask")] if key == "mask" else kres[("fusion", torch.bfloat16, 0.0)]
         per_shape = []
         for name, *_ in SHAPES:
@@ -633,14 +832,14 @@ def main():
                                   "library_ms": r.get(f"{key}_library_ms"),
                                   "bound_ms": r[f"{key}_bound_ms"],
                                   "bound_by": r[f"{key}_bound_by"]})
+        by_path = {p: c[kname] for p, c in paths.items()}
         kernels.append({
-            "name": kname, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": counts[kname] + train_counts[kname],
-            "launches_by_path": {"served": counts[kname], "train": train_counts[kname]},
+            "name": kname, "route": "cuda", "source": f"interactron_tpu_torch/csrc/{kname}.cu",
+            "replaces": replaces, "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": max(top["errs"][k] for k in errs),
             "ms": top[f"{key}_ms"], "plain_ms": top[f"{key}_plain_ms"],
             "bound_ms": top[f"{key}_bound_ms"], "bound_by": top[f"{key}_bound_by"],
-            "library_ms": top.get(f"{key}_library_ms"),
+            "library_ms": top.get(f"{key}_library_ms"), "library": library.get(key),
             "at": f"{at}, rate 0.1 mask of (8, 2060, 2060)" if key == "mask" else f"{at}, rate 0",
             "per_shape": per_shape,
         })

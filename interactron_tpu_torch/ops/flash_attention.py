@@ -4,13 +4,27 @@ plain PyTorch versions and the autograd Functions.
 Counterpart of interactron_tpu/ops/flash_attention.py:
   * `flash_fwd` <- `_fwd_kernel` (O and the log-normaliser L);
   * `flash_bwd` <- `_bwd_merged_kernel` (dq, dk, dv);
+  * `flash_dq` <- `_dq_kernel` and `flash_dkv` <- `_dkv_kernel_fullt` and
+    `_dkv_kernel` (the split backward, one kernel for dq, one for dk/dv);
   * `flash_so` <- `_sov_merged_kernel` (the VJP of the backward, for the
     twice-differentiated meta inner loss);
+  * `flash_so_row` <- `_sov_row_kernel` and `flash_so_col` <-
+    `_sov_col_kernel` (the same VJP split: c_q, c_dO and the row statistics,
+    then c_k, c_v);
   * `dropout_mask` <- `_mask_row_kernel` (the keep mask of a region);
   * `FlashAttention` <- `_flash` / `flash_attention_bthd` (first order);
   * `FlashAttentionSO` and `FlashGrads` <- `_flashso` / `_flash_grads` /
     `flash_attention_so_bthd` (second order).
 Head h of a packed tensor sits at columns [h*D, (h+1)*D).
+
+Formulation. As in the JAX package, environment variables read at call
+time choose the backward's kernels (`formulation`): FLASH_BWD (`merged`,
+the default, or anything else for split), SO_MERGED (`0` for split, merged
+otherwise) and FLASH_DKV (`fullt`, the default, or anything else for
+blocked). `flash_grads` and `flash_so_vjp` route on them. The TPU's two
+dK/dV kernels differ only in how they use VMEM, so both FLASH_DKV values
+take `flash_dkv`. In the split formulation every output element is written
+by one CTA (no atomics), so its results are bitwise reproducible.
 
 Every wrapper takes CPU tensors through its plain version and CUDA tensors
 through its kernel in `interactron_tpu_torch/csrc/` (built at first use, see
@@ -35,13 +49,15 @@ show that its attention went through the kernels.
 
 import ctypes
 import math
+import os
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from interactron_tpu_torch.ops import cuda_build
 
-launches = {"flash_fwd": 0, "flash_bwd": 0, "flash_so": 0, "dropout_mask": 0}
+launches = {"flash_fwd": 0, "flash_bwd": 0, "flash_dq": 0, "flash_dkv": 0, "flash_so": 0,
+            "flash_so_row": 0, "flash_so_col": 0, "dropout_mask": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64)
@@ -53,7 +69,11 @@ _DROP = [_U, _U, _F, _I]  # seed, keep threshold, 1 / (1 - rate), dropout on
 _ARGTYPES = {
     "flash_fwd": [_P] * 5 + [_I] * 6 + _DROP + [_P],
     "flash_bwd": [_P] * 9 + [_I] * 6 + _DROP + [_P],
+    "flash_dq": [_P] * 7 + [_I] * 6 + _DROP + [_P],
+    "flash_dkv": [_P] * 8 + [_I] * 6 + _DROP + [_P],
     "flash_so": [_P] * 13 + [_I] * 6 + _DROP + [_P],
+    "flash_so_row": [_P] * 13 + [_I] * 6 + _DROP + [_P],
+    "flash_so_col": [_P] * 13 + [_I] * 6 + _DROP + [_P],
     "dropout_mask": [_P, _U, _U] + [_I] * 6 + [_P],
 }
 
@@ -70,6 +90,15 @@ _FMIX2 = 0xC2B2AE35
 def reset_launches():
     for name in launches:
         launches[name] = 0
+
+
+def formulation():
+    """The backward's formulation from the environment, read at each call
+    with the JAX package's defaults and meanings: {"bwd": "merged" or
+    "split", "dkv": "fullt" or "blocked", "so": "merged" or "split"}."""
+    return {"bwd": "merged" if os.environ.get("FLASH_BWD", "merged") == "merged" else "split",
+            "dkv": "fullt" if os.environ.get("FLASH_DKV", "fullt") == "fullt" else "blocked",
+            "so": "merged" if os.environ.get("SO_MERGED", "1") != "0" else "split"}
 
 
 def _kernel(name):
@@ -187,8 +216,10 @@ def flash_fwd_plain(q, k, v, num_heads, rate=0.0, seed=0):
     return _packed(o).to(q.dtype), (m + torch.log(denom)).squeeze(-1)
 
 
-def flash_bwd_plain(q, k, v, o, lse, do, num_heads, rate=0.0, seed=0):
-    """Plain version of the merged backward kernel: (dq, dk, dv)."""
+def _bwd_tiles(q, k, v, o, lse, do, num_heads, rate, seed):
+    """The (B, H, T, S) tiles of the first-order backward, shared by the
+    merged and the split plain versions: (scale, q, k, dO heads in fp32,
+    the dropped P rounded to dO's dtype, dS rounded to q's dtype)."""
     scale = 1.0 / math.sqrt(q.shape[-1] // num_heads)
     qh, kh, vh, oh, doh = (_heads(x, num_heads) for x in (q, k, v, o, do))
     delta = (doh * oh).sum(-1, keepdim=True)
@@ -201,23 +232,48 @@ def flash_bwd_plain(q, k, v, o, lse, do, num_heads, rate=0.0, seed=0):
         inv = 1.0 / (1.0 - rate)
         pd = torch.where(keep, p * inv, 0.0)
         dp = torch.where(keep, dp * inv, 0.0)
-    dv = pd.to(do.dtype).float().transpose(-1, -2) @ doh
     ds = (p * (dp - delta)).to(q.dtype).float()
+    return scale, qh, kh, doh, pd.to(do.dtype).float(), ds
+
+
+def flash_bwd_plain(q, k, v, o, lse, do, num_heads, rate=0.0, seed=0):
+    """Plain version of the merged backward kernel: (dq, dk, dv)."""
+    scale, qh, kh, doh, pd, ds = _bwd_tiles(q, k, v, o, lse, do, num_heads, rate, seed)
+    dv = pd.transpose(-1, -2) @ doh
     dk = (ds.transpose(-1, -2) @ qh) * scale
     dq = (ds @ kh) * scale
     return _packed(dq).to(q.dtype), _packed(dk).to(k.dtype), _packed(dv).to(v.dtype)
 
 
-def flash_so_plain(q, k, v, do, a, bc, c, lse, delta, num_heads, rate=0.0, seed=0):
-    """Plain version of the second-order kernel: the cotangents (c_q, c_k,
-    c_v, c_dO) of (q, k, v, dO) given the cotangents (A, Bc, C) of the
-    backward's (dq, dk, dv). Math of `_sov_merged_kernel`; g_S, dS, the
-    dropped P and g_dp are rounded to the operand dtype before each product,
-    where the Pallas kernel rounds."""
+def flash_dq_plain(q, k, v, o, lse, do, num_heads, rate=0.0, seed=0):
+    """Plain version of the dq kernel: dq = scale * dS K in q's dtype."""
+    scale, _, kh, _, _, ds = _bwd_tiles(q, k, v, o, lse, do, num_heads, rate, seed)
+    return _packed((ds @ kh) * scale).to(q.dtype)
+
+
+def flash_dkv_plain(q, k, v, o, lse, do, num_heads, rate=0.0, seed=0):
+    """Plain version of the dK/dV kernel: (dk, dv), dK from the raw q times
+    the scale (`_dkv_kernel`'s form; `_dkv_kernel_fullt` scales q first,
+    which agrees to rounding)."""
+    scale, qh, _, doh, pd, ds = _bwd_tiles(q, k, v, o, lse, do, num_heads, rate, seed)
+    dk = (ds.transpose(-1, -2) @ qh) * scale
+    dv = pd.transpose(-1, -2) @ doh
+    return _packed(dk).to(k.dtype), _packed(dv).to(v.dtype)
+
+
+def _so_tiles(q, k, v, do, a, bc, c, lse, delta, num_heads, rate, seed, stats=None):
+    """The (B, H, T, S) tiles of the second-order backward (math of
+    `_sov_merged_kernel`), shared by the merged and the split plain versions.
+    `stats` = (g_D, s_gp), each (B, H, T), are the row statistics when the
+    row half has formed them; without them they are formed here. Returns
+    the scale, the operand heads in fp32, g_S, dS, the dropped P and g_dp
+    rounded to the operand dtype (where the Pallas kernels round before
+    each product), and g_D, s_gp as (B, H, T, 1)."""
     dt = q.dtype
     rnd = lambda x: x.to(dt).float()
     scale = 1.0 / math.sqrt(q.shape[-1] // num_heads)
-    qh, kh, vh, doh, ah, bh, ch = (_heads(x, num_heads) for x in (q, k, v, do, a, bc, c))
+    heads = [_heads(x, num_heads) for x in (q, k, v, do, a, bc, c)]
+    qh, kh, vh, doh, ah, bh, ch = heads
     p = torch.exp((qh @ kh.transpose(-1, -2)) * scale - lse.unsqueeze(-1))
     dp = doh @ vh.transpose(-1, -2)
     g_ds = (ah @ kh.transpose(-1, -2) + qh @ bh.transpose(-1, -2)) * scale
@@ -232,18 +288,52 @@ def flash_so_plain(q, k, v, do, a, bc, c, lse, delta, num_heads, rate=0.0, seed=
         pd = torch.where(keep, p * inv, 0.0)
     e = dp - delta.unsqueeze(-1)
     ds = p * e
-    g_d = -(p * g_ds).sum(-1, keepdim=True)
+    if stats is None:
+        g_d = -(p * g_ds).sum(-1, keepdim=True)
+    else:
+        g_d = stats[0].unsqueeze(-1)
     g_p = g_p1 + g_ds * e + g_d * dp
     g_dp = p * (g_ds + g_d)
     if rate > 0.0:
         g_dp = torch.where(keep, g_dp * inv, 0.0)
-    g_s = p * (g_p - (p * g_p).sum(-1, keepdim=True))
-    g_s, ds, pd, g_dp = rnd(g_s), rnd(ds), rnd(pd), rnd(g_dp)
+    s_gp = (p * g_p).sum(-1, keepdim=True) if stats is None else stats[1].unsqueeze(-1)
+    g_s = p * (g_p - s_gp)
+    return scale, heads, rnd(g_s), rnd(ds), rnd(pd), rnd(g_dp), g_d, s_gp
+
+
+def flash_so_plain(q, k, v, do, a, bc, c, lse, delta, num_heads, rate=0.0, seed=0):
+    """Plain version of the second-order kernel: the cotangents (c_q, c_k,
+    c_v, c_dO) of (q, k, v, dO) given the cotangents (A, Bc, C) of the
+    backward's (dq, dk, dv)."""
+    scale, (qh, kh, vh, doh, ah, bh, ch), g_s, ds, pd, g_dp, _, _ = _so_tiles(
+        q, k, v, do, a, bc, c, lse, delta, num_heads, rate, seed)
     cq = (g_s @ kh + ds @ bh) * scale
     cdo = pd @ ch + g_dp @ vh
     ck = (g_s.transpose(-1, -2) @ qh + ds.transpose(-1, -2) @ ah) * scale
     cv = g_dp.transpose(-1, -2) @ doh
-    return tuple(_packed(x).to(dt) for x in (cq, ck, cv, cdo))
+    return tuple(_packed(x).to(q.dtype) for x in (cq, ck, cv, cdo))
+
+
+def flash_so_row_plain(q, k, v, do, a, bc, c, lse, delta, num_heads, rate=0.0, seed=0):
+    """Plain version of the row half of the second-order kernel pair:
+    (c_q, c_dO) in q's dtype and the row statistics g_D = -rowsum(P*g_dS)
+    and s_gp = rowsum(P*g_P), each (B, H, T) fp32."""
+    scale, (_, kh, vh, _, _, bh, ch), g_s, ds, pd, g_dp, g_d, s_gp = _so_tiles(
+        q, k, v, do, a, bc, c, lse, delta, num_heads, rate, seed)
+    cq = (g_s @ kh + ds @ bh) * scale
+    cdo = pd @ ch + g_dp @ vh
+    return _packed(cq).to(q.dtype), _packed(cdo).to(q.dtype), g_d.squeeze(-1), s_gp.squeeze(-1)
+
+
+def flash_so_col_plain(q, k, v, do, a, bc, c, lse, delta, g_d, s_gp, num_heads, rate=0.0,
+                       seed=0):
+    """Plain version of the column half: (c_k, c_v) in q's dtype from the
+    row half's statistics g_D and s_gp."""
+    scale, (qh, _, _, doh, ah, _, _), g_s, ds, _, g_dp, _, _ = _so_tiles(
+        q, k, v, do, a, bc, c, lse, delta, num_heads, rate, seed, stats=(g_d, s_gp))
+    ck = (g_s.transpose(-1, -2) @ qh + ds.transpose(-1, -2) @ ah) * scale
+    cv = g_dp.transpose(-1, -2) @ doh
+    return _packed(ck).to(q.dtype), _packed(cv).to(q.dtype)
 
 
 # ---------------------------------------------------------------- wrappers
@@ -322,6 +412,52 @@ def flash_bwd(q, k, v, o, lse, do, num_heads, rate=0.0, seed=0):
     return dq.to(q.dtype), dk, dv
 
 
+def flash_dq(q, k, v, o, lse, do, num_heads, rate=0.0, seed=0):
+    """dq of packed attention in q's dtype, one CTA per query tile (the
+    split backward's first half)."""
+    _check(q, k, v, num_heads, rate, q_like=(o, do))
+    if q.device.type == "cpu":
+        return flash_dq_plain(q, k, v, o, lse, do, num_heads, rate, seed)
+    _check_rows(lse, q, num_heads, "L")
+    q, k, v, do, lse = (x.contiguous() for x in (q, k, v, do, lse))
+    b, t, dim = q.shape
+    delta = _delta(do, o, num_heads)
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        _launch("flash_dq", *(x.data_ptr() for x in (q, k, v, do, lse, delta, dq)),
+                b, t, k.shape[1], num_heads, dim // num_heads, _DTYPES[q.dtype],
+                *_drop_args(rate, seed))
+    return dq
+
+
+def flash_dkv(q, k, v, o, lse, do, num_heads, rate=0.0, seed=0):
+    """(dk, dv) of packed attention in k's dtype, one CTA per key tile (the
+    split backward's second half, for both values of FLASH_DKV)."""
+    _check(q, k, v, num_heads, rate, q_like=(o, do))
+    if q.device.type == "cpu":
+        return flash_dkv_plain(q, k, v, o, lse, do, num_heads, rate, seed)
+    _check_rows(lse, q, num_heads, "L")
+    q, k, v, do, lse = (x.contiguous() for x in (q, k, v, do, lse))
+    b, t, dim = q.shape
+    delta = _delta(do, o, num_heads)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        _launch("flash_dkv", *(x.data_ptr() for x in (q, k, v, do, lse, delta, dk, dv)),
+                b, t, k.shape[1], num_heads, dim // num_heads, _DTYPES[q.dtype],
+                *_drop_args(rate, seed))
+    return dk, dv
+
+
+def flash_grads(q, k, v, o, lse, do, num_heads, rate=0.0, seed=0):
+    """(dq, dk, dv) by the formulation FLASH_BWD selects: `flash_bwd` when
+    merged, `flash_dq` then `flash_dkv` when split."""
+    if formulation()["bwd"] == "merged":
+        return flash_bwd(q, k, v, o, lse, do, num_heads, rate, seed)
+    dq = flash_dq(q, k, v, o, lse, do, num_heads, rate, seed)
+    return (dq, *flash_dkv(q, k, v, o, lse, do, num_heads, rate, seed))
+
+
 def flash_so(q, k, v, do, a, bc, c, lse, delta, num_heads, rate=0.0, seed=0):
     """(c_q, c_k, c_v, c_dO): the VJP of the attention backward for the
     cotangents (A, Bc, C) of (dq, dk, dv); L and D = rowsum(dO * O) are
@@ -346,12 +482,70 @@ def flash_so(q, k, v, do, a, bc, c, lse, delta, num_heads, rate=0.0, seed=0):
     return cq, ck.to(q.dtype), cv.to(q.dtype), cdo
 
 
+def flash_so_row(q, k, v, do, a, bc, c, lse, delta, num_heads, rate=0.0, seed=0):
+    """The row half of the split second-order backward: (c_q, c_dO) in q's
+    dtype and the row statistics (g_D, s_gp), each (B, H, T) fp32, that
+    `flash_so_col` reads."""
+    _check(q, k, v, num_heads, rate, q_like=(do, a), k_like=(bc, c))
+    _check_rows(lse, q, num_heads, "L")
+    _check_rows(delta, q, num_heads, "D")
+    if q.device.type == "cpu":
+        return flash_so_row_plain(q, k, v, do, a, bc, c, lse, delta, num_heads, rate, seed)
+    q, k, v, do, a, bc, c, lse, delta = (x.contiguous()
+                                         for x in (q, k, v, do, a, bc, c, lse, delta))
+    b, t, dim = q.shape
+    cq = torch.empty_like(q)
+    cdo = torch.empty_like(q)
+    g_d = torch.empty_like(lse)
+    s_gp = torch.empty_like(lse)
+    with torch.cuda.device(q.device):
+        _launch("flash_so_row", *(x.data_ptr() for x in (q, k, v, do, a, bc, c, lse, delta,
+                                                          cq, cdo, g_d, s_gp)),
+                b, t, k.shape[1], num_heads, dim // num_heads, _DTYPES[q.dtype],
+                *_drop_args(rate, seed))
+    return cq, cdo, g_d, s_gp
+
+
+def flash_so_col(q, k, v, do, a, bc, c, lse, delta, g_d, s_gp, num_heads, rate=0.0, seed=0):
+    """The column half: (c_k, c_v) in q's dtype from `flash_so_row`'s row
+    statistics, one CTA per key tile."""
+    _check(q, k, v, num_heads, rate, q_like=(do, a), k_like=(bc, c))
+    for x, name in ((lse, "L"), (delta, "D"), (g_d, "g_D"), (s_gp, "s_gp")):
+        _check_rows(x, q, num_heads, name)
+    if q.device.type == "cpu":
+        return flash_so_col_plain(q, k, v, do, a, bc, c, lse, delta, g_d, s_gp, num_heads,
+                                  rate, seed)
+    q, k, v, do, a, bc, c, lse, delta, g_d, s_gp = (
+        x.contiguous() for x in (q, k, v, do, a, bc, c, lse, delta, g_d, s_gp))
+    b, t, dim = q.shape
+    ck = torch.empty_like(k)
+    cv = torch.empty_like(k)
+    with torch.cuda.device(q.device):
+        _launch("flash_so_col", *(x.data_ptr() for x in (q, k, v, do, a, bc, c, lse, delta,
+                                                          g_d, s_gp, ck, cv)),
+                b, t, k.shape[1], num_heads, dim // num_heads, _DTYPES[q.dtype],
+                *_drop_args(rate, seed))
+    return ck, cv
+
+
+def flash_so_vjp(q, k, v, do, a, bc, c, lse, delta, num_heads, rate=0.0, seed=0):
+    """(c_q, c_k, c_v, c_dO) by the formulation SO_MERGED selects:
+    `flash_so` when merged, `flash_so_row` then `flash_so_col` when split
+    (both on the current stream, so the column half reads finished
+    statistics)."""
+    if formulation()["so"] == "merged":
+        return flash_so(q, k, v, do, a, bc, c, lse, delta, num_heads, rate, seed)
+    cq, cdo, g_d, s_gp = flash_so_row(q, k, v, do, a, bc, c, lse, delta, num_heads, rate, seed)
+    ck, cv = flash_so_col(q, k, v, do, a, bc, c, lse, delta, g_d, s_gp, num_heads, rate, seed)
+    return cq, ck, cv, cdo
+
+
 # ---------------------------------------------------------------- autograd
 
 
 class FlashAttention(torch.autograd.Function):
     """Packed attention, q (B, T, H*D) and k/v (B, S, H*D) -> (B, T, H*D),
-    whose forward is `flash_fwd` and whose backward is `flash_bwd` (first
+    whose forward is `flash_fwd` and whose backward is `flash_grads` (first
     order only): the counterpart of `flash_attention_bthd`."""
 
     @staticmethod
@@ -365,22 +559,22 @@ class FlashAttention(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_bwd(q, k, v, o, lse, do, *ctx.args)
+        dq, dk, dv = flash_grads(q, k, v, o, lse, do, *ctx.args)
         return dq, dk, dv, None, None, None
 
 
 class FlashGrads(torch.autograd.Function):
     """The attention backward as a function of its own, (q, k, v, dO) ->
     (dq, dk, dv) (<- `_flash_grads`): its forward recomputes (O, L) and runs
-    `flash_bwd`, its backward recomputes (O, L) and D and runs `flash_so`.
-    Third order is not defined."""
+    `flash_grads`, its backward recomputes (O, L) and D and runs
+    `flash_so_vjp`. Third order is not defined."""
 
     @staticmethod
     def forward(ctx, q, k, v, do, num_heads, rate, seed):
         o, lse = flash_fwd(q, k, v, num_heads, rate, seed)
         ctx.save_for_backward(q, k, v, do)
         ctx.args = (num_heads, rate, seed)
-        return flash_bwd(q, k, v, o, lse, do, num_heads, rate, seed)
+        return flash_grads(q, k, v, o, lse, do, num_heads, rate, seed)
 
     @staticmethod
     @once_differentiable
@@ -388,8 +582,8 @@ class FlashGrads(torch.autograd.Function):
         q, k, v, do = ctx.saved_tensors
         num_heads = ctx.args[0]
         o, lse = flash_fwd(q, k, v, *ctx.args)
-        cq, ck, cv, cdo = flash_so(q, k, v, do, a, bc, c, lse, _delta(do, o, num_heads),
-                                   *ctx.args)
+        cq, ck, cv, cdo = flash_so_vjp(q, k, v, do, a, bc, c, lse, _delta(do, o, num_heads),
+                                       *ctx.args)
         return cq, ck, cv, cdo, None, None, None
 
 

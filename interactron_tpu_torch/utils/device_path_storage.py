@@ -23,7 +23,9 @@ NUM_NODES = 85
 _INF = 1e30
 
 
-def init_path_state(num_episodes, device="cpu"):
+def init_path_state(num_episodes, device):
+    """Empty state of `num_episodes` episodes on `device` (no default: the
+    state lives beside the model that updates it)."""
     return {
         "cost": torch.full((num_episodes, NUM_NODES), _INF, dtype=torch.float32, device=device),
         "action": torch.zeros((num_episodes, NUM_NODES), dtype=torch.int64, device=device),

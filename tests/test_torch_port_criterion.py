@@ -91,7 +91,7 @@ def test_set_criterion_matches_jax(per_frame):
 
 def test_update_and_label_matches_jax():
     rng = np.random.RandomState(5)
-    js, ts = jpath.init_path_state(6), tpath.init_path_state(6)
+    js, ts = jpath.init_path_state(6), tpath.init_path_state(6, device="cpu")
     for step in range(12):
         uids = rng.choice(6, 2, replace=False).astype(np.int32)  # uids revisit
         actions = rng.randint(0, 4, (2, 4)).astype(np.int32)

@@ -9,7 +9,11 @@ Shapes are the served and train paths' E (DETR encoder), F (fusion) and L
 (last fusion block). Tolerances: bf16 kernels against the plain version in
 fp32 on the same bf16 inputs, 2e-2 x max|ref| (outputs, P, dS and the
 second-order products rounded to bf16); fp32, 1e-4 x max|ref| (summation
-order and the unordered fp32 atomics). The mask kernel must be bit-exact.
+order and the merged kernels' unordered fp32 atomics). The split
+formulation's kernels (flash_dq, flash_dkv, flash_so_row, flash_so_col) are
+also held against the merged ones to the same tolerance, and must give
+bitwise-equal outputs run to run (they use no atomics). The mask kernel must
+be bit-exact.
 """
 
 import pytest
@@ -45,9 +49,67 @@ def test_kernels_match_plain_on_cuda(b, t, s, hd, dtype, rate):
     o, lse = tfa.flash_fwd(q, k, v, h, rate, seed)
     got = (o, lse, *tfa.flash_bwd(q, k, v, o, lse, do, h, rate, seed),
            *tfa.flash_so(q, k, v, do, a, bc, c, lse_ref, delta, h, rate, seed))
-    assert tfa.launches == {"flash_fwd": 1, "flash_bwd": 1, "flash_so": 1, "dropout_mask": 0}
+    assert tfa.launches == {"flash_fwd": 1, "flash_bwd": 1, "flash_dq": 0, "flash_dkv": 0,
+                            "flash_so": 1, "flash_so_row": 0, "flash_so_col": 0,
+                            "dropout_mask": 0}
     for g, r in zip(got, refs):
         assert (g.float() - r).abs().max().item() <= rel * r.abs().max().item()
+
+
+def _split_inputs(b, t, s, hd, dtype, rate, seed=4321, h=8):
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    xs = tuple(torch.randn((b, n, h * hd), device="cuda", generator=gen).to(getattr(torch, dtype))
+               for n in (t, s, s, t, t, s, s))
+    o, lse = tfa.flash_fwd_plain(*(x.float() for x in xs[:3]), h, rate, seed)
+    delta = tfa._delta(xs[3].float(), o, h)
+    return xs, o.to(xs[0].dtype), lse, delta, (h, rate, seed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,t,s,hd", [(5, 361, 361, 32), (1, 2060, 2060, 64),
+                                      (1, 255, 2060, 64)])
+def test_split_kernels_match_plain_and_merged_on_cuda(b, t, s, hd, dtype, rate):
+    _cuda()
+    (q, k, v, do, a, bc, c), o, lse, delta, args = _split_inputs(b, t, s, hd, dtype, rate)
+    rel = 2e-2 if dtype == "bfloat16" else 1e-4
+    f32 = [x.float() for x in (q, k, v, do, a, bc, c)]
+    row_ref = tfa.flash_so_row_plain(*f32, lse, delta, *args)
+    refs = (tfa.flash_dq_plain(*f32[:3], o.float(), lse, f32[3], *args),
+            *tfa.flash_dkv_plain(*f32[:3], o.float(), lse, f32[3], *args),
+            *row_ref, *tfa.flash_so_col_plain(*f32, lse, delta, *row_ref[2:], *args))
+    tfa.reset_launches()
+    row = tfa.flash_so_row(q, k, v, do, a, bc, c, lse, delta, *args)
+    got = (tfa.flash_dq(q, k, v, o, lse, do, *args), *tfa.flash_dkv(q, k, v, o, lse, do, *args),
+           *row, *tfa.flash_so_col(q, k, v, do, a, bc, c, lse, delta, *row_ref[2:], *args))
+    assert {n: tfa.launches[n] for n in ("flash_dq", "flash_dkv", "flash_so_row",
+                                         "flash_so_col")} == dict.fromkeys(
+        ("flash_dq", "flash_dkv", "flash_so_row", "flash_so_col"), 1)
+    for g, r in zip(got, refs):
+        assert (g.float() - r).abs().max().item() <= rel * r.abs().max().item()
+    # the split composition against the merged kernels
+    merged = (*tfa.flash_bwd(q, k, v, o, lse, do, *args),
+              *tfa.flash_so(q, k, v, do, a, bc, c, lse, delta, *args))
+    col = tfa.flash_so_col(q, k, v, do, a, bc, c, lse, delta, *row[2:], *args)
+    split = (*got[:3], row[0], *col, row[1])
+    for g, r in zip(split, merged):
+        r = r.float()
+        assert (g.float() - r).abs().max().item() <= rel * r.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_split_kernels_are_bitwise_reproducible():
+    _cuda()
+    (q, k, v, do, a, bc, c), o, lse, delta, args = _split_inputs(1, 2060, 2060, 64, "bfloat16", 0.1)
+
+    def run():
+        row = tfa.flash_so_row(q, k, v, do, a, bc, c, lse, delta, *args)
+        return (tfa.flash_dq(q, k, v, o, lse, do, *args), *tfa.flash_dkv(q, k, v, o, lse, do, *args),
+                *row, *tfa.flash_so_col(q, k, v, do, a, bc, c, lse, delta, *row[2:], *args))
+
+    for x, y in zip(run(), run()):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.cuda
