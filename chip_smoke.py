@@ -6,13 +6,17 @@ check it end to end.
 
 Phases, each of which fails the run (non-zero exit, no "ok" line):
   1. device line (nvidia-smi name and power limit); TF32 off for fp32 work;
-  2. build every CUDA kernel of the paths from interactron_tpu_torch/csrc/;
+  2. build every CUDA kernel of the paths from interactron_tpu_torch/csrc/,
+     one nvcc per library, all at once, with each library's build time;
   3. each kernel against its plain PyTorch version at the paths' shapes, in
      fp32 and bf16, at dropout rate 0 and 0.1 (the mask kernel bit for bit),
-     with its time beside the plain version's, one PyTorch library call's
-     where one computes the same function (F.scaled_dot_product_attention, a
-     yardstick only) and the bound (see `bound_ms`); the split formulation's
-     kernels also against the merged ones, and twice with equal outputs;
+     with its device time beside the plain version's, one PyTorch library
+     call's where one computes the same function
+     (F.scaled_dot_product_attention, a yardstick only) and the bound (see
+     `bound_ms`), and at the fusion shape flash_fwd's and flash_bwd's host
+     time per call; the split formulation's kernels also against the merged
+     ones, and twice with equal outputs; (b) flash_fwd and flash_bwd at
+     ragged shapes that end inside their 64-row tiles;
   4. full-width fp32 `predict` of configs/interactron.yaml (seed 0): the card
      against the CPU, which runs the plain versions;
   5. the served path in bf16: 4 episodes of next_action at s=1..4 and then
@@ -60,6 +64,16 @@ SHAPES = [
     ("fusion", 1, 2060, 2060, 8, 64),
     ("fusion_last", 1, 255, 2060, 8, 64),
 ]
+# (name, B, T, S, H, D) where T and S end inside flash_fwd's and flash_bwd's
+# 64-row tiles
+RAGGED = [
+    ("ragged_1x1", 2, 1, 1, 8, 64),
+    ("ragged_d32", 3, 65, 129, 8, 32),
+    ("ragged_s255", 1, 2060, 255, 8, 64),
+]
+# flash_fwd and flash_bwd before their tensor-core redesign: bf16 ms at the
+# fusion shape, rate 0 (chip_smoke.py phase 3, H100 80GB HBM3 at 700 W)
+PREVIOUS_MS = {"fwd": 0.9178, "bwd": 2.5889}
 # max abs error allowed, as a multiple of the reference's max abs value
 TOL = {
     torch.float32: (1e-4, "fp32 in and out: summation order, exp2f of pre-scaled logits, "
@@ -82,17 +96,44 @@ def device_line():
     ).stdout.strip().splitlines()[0]
 
 
+SLEEP_HZ = 2e9  # cycles a second, above the H100's 1.98 GHz boost clock
+
+
 def cuda_ms(fn, iters=20, warmup=3):
+    """Device ms per call of `fn`. The timed calls are queued behind a
+    sleeping kernel long enough to cover their enqueueing, so the events
+    time the device's work back to back and not the host's: a wrapper's host
+    cost (tens of microseconds) exceeds what a tensor-core kernel takes."""
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(SLEEP_HZ * (2 * iters * enqueue_s + 1e-4), 4e8)))
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_ms(fn, iters=50):
+    """Host ms per call of `fn`: the time to enqueue `iters` calls while the
+    device is held by a sleeping kernel, so that no call waits for it."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(SLEEP_HZ * 0.2))
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    out = 1e3 * (time.perf_counter() - t0) / iters
+    torch.cuda.synchronize()
+    return out
 
 
 def bound_ms(flops, nbytes, int_ops=0.0):
@@ -237,6 +278,11 @@ def check_kernels(fa):
                         entry[f"{kn}_ms"] = cuda_ms(kern)
                         entry[f"{kn}_plain_ms"] = cuda_ms(plain)
                         entry[f"{kn}_library_ms"] = None
+                    if name == "fusion" and rate == 0.0:
+                        for kn in ("fwd", "bwd"):
+                            entry[f"{kn}_host_ms"] = host_ms(timed[kn][0])
+                            log(f"  {label} flash_{kn} wrapper: host {entry[kn + '_host_ms']:.4f} "
+                                f"ms per call, device {entry[kn + '_ms']:.4f} ms per call")
                     if rate == 0.0:
                         # SDPA has no dropout mask of ours and no double backward;
                         # its backward forms dq, dk and dv together, the yardstick
@@ -283,6 +329,46 @@ def check_kernels(fa):
             raise AssertionError(f"{name} dropout mask: bit-exact {same}, keep {keep}")
         results[(name, "mask")] = entry
     return results
+
+
+def check_ragged(fa):
+    """Phase 3b: flash_fwd and flash_bwd against their plain versions where
+    T and S end inside the kernels' 64-row tiles, with B > 1 (a tile's tail
+    must not read the next batch element), in fp32 and bf16 at rates 0 and
+    0.1. With one key (S = 1) the softmax has no gradient: dq = dk = 0
+    exactly and both sides hold rounding noise of dS = P (dP - delta), where
+    dP and delta cancel; there dq and dk are held against the size of the
+    terms that cancel, scale x max|dO v^T| x max|k| (max|q| for dk)."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for name, b, t, s, h, d in RAGGED:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = (torch.randn((b, n, h * d), device="cuda", generator=gen).to(dtype)
+                           for n in (t, s, s, t))
+            f32 = [x.float() for x in (q, k, v, do)]
+            rel, why = TOL[dtype]
+            for rate in (0.0, RATE):
+                drop = (rate, SEED if rate else 0)
+                o_ref, lse_ref = fa.flash_fwd_plain(*f32[:3], h, *drop)
+                dq_ref, dk_ref, dv_ref = fa.flash_bwd_plain(*f32[:3], o_ref, lse_ref, f32[3], h,
+                                                            *drop)
+                o, lse = fa.flash_fwd(q, k, v, h, *drop)
+                dq, dk, dv = fa.flash_bwd(q, k, v, o, lse, do, h, *drop)
+                torch.cuda.synchronize()
+                label = f"{name:12s} {str(dtype)[6:]:8s} rate {rate:g}"
+                _check_errs(label, (("O", o, o_ref), ("L", lse, lse_ref), ("dv", dv, dv_ref)),
+                            rel, why)
+                if s > 1:
+                    _check_errs(label, (("dq", dq, dq_ref), ("dk", dk, dk_ref)), rel, why)
+                    continue
+                dp = (fa._heads(f32[3], h) @ fa._heads(f32[2], h).transpose(-1, -2)).abs().max()
+                cancel = dp.item() / d ** 0.5
+                for key, got, ref, other in (("dq", dq, dq_ref, f32[1]), ("dk", dk, dk_ref, f32[0])):
+                    err = (got.float() - ref).abs().max().item()
+                    tol = rel * max(ref.abs().max().item(), cancel * other.abs().max().item())
+                    log(f"  {label} {key:10s} max_abs_err={err:.3e} tol={tol:.3e} ({rel:g} x the "
+                        f"larger of max|ref| and the cancelled terms' size: S = 1, so {key} = 0)")
+                    if not err <= tol:
+                        raise AssertionError(f"{label} {key}: {err} > {tol}")
 
 
 def synthetic_frames(seed, s=5, size=300):
@@ -438,6 +524,21 @@ def served_path(model, fa, C, episodes=EPISODES, split=False):
     return counts, na_ms, pr_ms
 
 
+def build_kernels(cuda_build):
+    """Phase 2: every library of csrc/, each by its own nvcc, all at once.
+    Returns {name: (ptxas report, seconds its build took)}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(name):
+        t0 = time.perf_counter()
+        rep = cuda_build.build_all((name,)).get(name)
+        return name, rep, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(cuda_build.SOURCES)) as pool:
+        done = list(pool.map(one, cuda_build.SOURCES))
+    return {name: (rep, secs) for name, rep, secs in done if rep is not None}
+
+
 def profile_run(fn):
     """Device time by kernel over one call of `fn` (after a warm-up call),
     and the device's idle share (1 - summed kernel time / wall time;
@@ -461,7 +562,8 @@ def profile_run(fn):
     log(f"  wall {wall_ms:.2f} ms, device kernels {busy:.2f} ms in {len(kernels)} launches, "
         f"idle share {1 - busy / wall_ms:.3f} (profiler on)")
     # substring matches; no kernel name contains another's
-    groups = {"flash_fwd (fwd_kernel)": ("fwd_kernel",), "flash_bwd (bwd_kernel)": ("bwd_kernel",),
+    groups = {"flash_fwd (fwd_kernel, fwd_wgmma_kernel)": ("fwd_kernel", "fwd_wgmma_kernel"),
+              "flash_bwd (bwd_kernel, bwd_wgmma_kernel)": ("bwd_kernel", "bwd_wgmma_kernel"),
               "flash_dq (dq_kernel)": ("dq_kernel",), "flash_dkv (dkv_kernel)": ("dkv_kernel",),
               "flash_so (so_kernel)": ("so_kernel",),
               "flash_so_row (sov_row_kernel)": ("sov_row_kernel",),
@@ -730,15 +832,19 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    reports = cuda_build.build_all()
-    log(f"[2] built {sorted(reports) or 'nothing (cached)'} in {time.perf_counter() - t0:.1f} s")
-    for name, rep in reports.items():
+    reports = build_kernels(cuda_build)
+    log(f"[2] built {sorted(reports) or 'nothing (cached)'} in {time.perf_counter() - t0:.1f} s, "
+        "one nvcc per library, all at once")
+    for name, (rep, secs) in sorted(reports.items()):
+        log(f"    {name}: {secs:.1f} s")
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"    {name}: {line.strip()}")
 
     log("[3] kernels vs plain versions")
     kres = check_kernels(fa)
+    log("  (b) flash_fwd and flash_bwd at ragged shapes")
+    check_ragged(fa)
 
     log("[4] full-width fp32 predict, card vs CPU")
     cfg_dict = get_config("configs/interactron.yaml").to_dict()
@@ -843,6 +949,9 @@ def main():
             "at": f"{at}, rate 0.1 mask of (8, 2060, 2060)" if key == "mask" else f"{at}, rate 0",
             "per_shape": per_shape,
         })
+        if key in PREVIOUS_MS:
+            kernels[-1].update(redesigned="bf16 on wgmma and TMA", previous_ms=PREVIOUS_MS[key],
+                               host_ms=top[f"{key}_host_ms"])
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)  # nvidia-smi's name and power limit, on a line of its own
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -16,19 +16,44 @@
 // bound by operations (~22 us at 989 TFLOP/s bf16); the DETR encoder shape
 // is small on both counts.
 //
-// Design: one CTA owns (b, h, 32 keys) and keeps that K/V tile and its
-// dK/dV accumulators (fp32 registers) for its whole life, looping over the
-// query rows 32 at a time, so each (q-tile, k-tile) pair is visited once.
-// On the TPU the grid runs in order and dQ sums in a VMEM-resident output
-// revisited across k-blocks. CTAs on the card run in no order, so each CTA
-// adds its dQ share into an fp32 buffer with atomicAdd; the caller zeroes
-// the buffer and casts it to q's dtype. The order of those atomic adds
-// varies between runs, so dQ is not bitwise reproducible in its last bits.
-// The ragged edge is masked by index: query rows >= T and keys >= S get
-// P = dS = 0 and are never written. Arithmetic is scalar fp32 FMA through
-// shared memory; tensor cores and a dQ pass without atomics come later.
+// dQ and reproducibility: on the TPU the grid runs in order and dQ sums in
+// a VMEM-resident output revisited across k-blocks. CTAs on the card run in
+// no order, so each CTA adds its dQ share atomically into an fp32 buffer
+// that the caller zeroes and casts to q's dtype (bf16: a TMA reduce-add,
+// whose adds are atomic in L2; fp32: atomicAdd). The order of those adds
+// varies between runs, so dQ is not bitwise reproducible in its last bits;
+// the split formulation (flash_dq + flash_dkv) is the reproducible one.
+//
+// bf16 (the configuration's dtype): tensor cores. One CTA is one warpgroup
+// (128 threads) that owns (b, h, 64 keys): its K and V tiles are loaded
+// once by TMA and dK/dV stay in fp32 wgmma accumulators for its whole life.
+// Q and dO tiles of 64 query rows stream through a 2-stage TMA ring (one
+// mbarrier a stage). L and delta, 256 bytes a tile, go straight from
+// global memory into the registers of the threads that own their rows
+// (four values a thread): a TMA copy would add two tensor maps to every
+// launch's host cost and a shared-memory round trip, and a (B, H, T) row
+// with odd T cannot be a 2-D map (TMA's 16-byte stride rule). For each
+// query tile: S = Q K^T and dP = dO V^T by wgmma (both
+// operands K-major); P = exp2(S scale log2e - L log2e) and dS = P (dP -
+// delta) on the accumulator registers, with the keep bits of each
+// register's (row, col); P (dropped) and dS stored as bf16 to 128-byte
+// swizzled shared tiles; dV += P^T dO and dK += dS^T Q by wgmma with the
+// transposed (MN-major) A from those tiles and dO, Q as MN-major B; the
+// tile's dQ share dS K by wgmma with dS from registers as A. The share goes
+// through an fp32 shared tile into one TMA reduce-add (add.f32 in L2) per
+// tile: S/64 adds per dQ element. Keys >= S and rows >= T get P = dS = 0;
+// TMA zero-fills their tiles per batch element and clips the reduce at T.
+// Shared memory a CTA at D=64: K, V 16 KB, Q/dO ring 32 KB, P and dS 16 KB,
+// the dQ tile 16 KB: about 81 KB (49 KB at D=32).
+//
+// fp32: the scalar-FMA kernel below (`bwd_kernel`), unchanged from the
+// first port: one CTA per 32 keys, dQ by fp32 atomicAdd. TF32 tensor cores
+// would round the operands to 10 mantissa bits and break the fp32
+// card-vs-CPU checks (1e-4 x max|ref|); the configuration runs bf16, so
+// fp32 exists for those checks.
 #include "common.cuh"
 #include "dropout.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -178,12 +203,239 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+
+// ------------------------------------------------------------ bf16: wgmma + TMA
+
+constexpr int kKeys = 64;    // keys per CTA: one warpgroup's dK/dV rows
+constexpr int kRows = 64;    // query rows per Q/dO tile
+constexpr int kStages = 2;   // Q/dO ring depth
+constexpr int kWgThreads = 128;
+
+// byte offsets from the CTA's 1024-aligned shared-memory base
+template <int D>
+struct BwdSmem {
+  static constexpr int kTile = 64 * D * 2;  // one 64-row bf16 tile of width D
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + kTile;
+  static constexpr int kQ = kV + kTile;                // kStages tiles
+  static constexpr int kDO = kQ + kStages * kTile;     // kStages tiles
+  static constexpr int kP = kDO + kStages * kTile;     // 64 x 64 bf16
+  static constexpr int kDS = kP + 64 * 64 * 2;         // 64 x 64 bf16
+  static constexpr int kDQ = kDS + 64 * 64 * 2;        // 64 x D fp32
+  static constexpr int kBar = kDQ + 64 * D * 4;        // K/V barrier, then one per stage
+  static constexpr int kBytes = kBar + 8 * (1 + kStages) + 1024;  // + alignment slack
+};
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads)
+bwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                 const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap domap,
+                 const __grid_constant__ CUtensorMap dqmap, const float* __restrict__ lse,
+                 const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+                 __nv_bfloat16* __restrict__ dv, int t_len, int s_len, int heads, float scale,
+                 ipt::Dropout drop) {
+  using L = BwdSmem<D>;
+  constexpr int RB = D * 2;  // bytes of one q/k/v/dO tile row
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (ipt::smem_addr(smem_raw) + 1023) & ~1023u;
+  uint8_t* const gbase = smem_raw + (base - ipt::smem_addr(smem_raw));  // generic pointer
+  const uint32_t sk = base + L::kK;
+  const uint32_t sv = base + L::kV;
+  const uint32_t bar_kv = base + L::kBar;
+  const uint32_t bar_q = bar_kv + 8;  // + 8 * stage
+
+  const int tid = threadIdx.x;
+  const int w = tid / 32;
+  const int lane = tid % 32;
+  const int bh = blockIdx.y;
+  const int b = bh / heads;
+  const int h = bh % heads;
+  const int k0 = blockIdx.x * kKeys;
+  const int nq = (t_len + kRows - 1) / kRows;
+
+  if (tid == 0) {
+    ipt::mbar_init(bar_kv, 1);
+    for (int s = 0; s < kStages; ++s) ipt::mbar_init(bar_q + 8 * s, 1);
+    ipt::mbar_fence_init();
+    ipt::mbar_expect_tx(bar_kv, 2 * L::kTile);
+    ipt::tma_load_3d(sk, &kmap, bar_kv, h * D, k0, b);
+    ipt::tma_load_3d(sv, &vmap, bar_kv, h * D, k0, b);
+    for (int s = 0; s < kStages && s < nq; ++s) {
+      ipt::mbar_expect_tx(bar_q + 8 * s, 2 * L::kTile);
+      ipt::tma_load_3d(base + L::kQ + s * L::kTile, &qmap, bar_q + 8 * s, h * D, s * kRows, b);
+      ipt::tma_load_3d(base + L::kDO + s * L::kTile, &domap, bar_q + 8 * s, h * D, s * kRows, b);
+    }
+  }
+  __syncthreads();
+
+  // this thread's accumulator rows are r0 and r0 + 8 (h = 0, 1), and in
+  // each 8-column block its columns are c0 and c0 + 1
+  const int r0 = 16 * w + lane / 4;
+  const int c0 = 2 * (lane % 4);
+  const float s2 = scale * ipt::kLog2e;
+  const float* lb = lse + (size_t)bh * t_len;
+  const float* db = delta + (size_t)bh * t_len;
+  float dv_acc[D / 2], dk_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dv_acc[i] = dk_acc[i] = 0.f;
+
+  const uint64_t dk_desc = ipt::tile_desc<RB>(sk);
+  const uint64_t dv_desc = ipt::tile_desc<RB>(sv);
+  const uint64_t dp_desc = ipt::tile_desc<128>(base + L::kP);
+  const uint64_t ds_desc = ipt::tile_desc<128>(base + L::kDS);
+  ipt::mbar_wait(bar_kv, 0);
+  for (int i = 0; i < nq; ++i) {
+    const int st = i % kStages;
+    const int q0 = i * kRows;
+    const uint32_t sq = base + L::kQ + st * L::kTile;
+    const uint32_t sdo = base + L::kDO + st * L::kTile;
+    const uint64_t q_desc = ipt::tile_desc<RB>(sq);
+    const uint64_t do_desc = ipt::tile_desc<RB>(sdo);
+    bool rok[2];
+    float lrow[2], drow[2];
+    uint32_t rkey[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = q0 + r0 + 8 * hh;
+      rok[hh] = row < t_len;
+      lrow[hh] = rok[hh] ? lb[row] * ipt::kLog2e : 0.f;
+      drow[hh] = rok[hh] ? db[row] : 0.f;
+      rkey[hh] = ipt::row_key(drop.seed, bh, row);
+    }
+    ipt::mbar_wait(bar_q + 8 * st, (i / kStages) & 1);
+
+    // S = Q K^T and dP = dO V^T, k-slices of 16 along D
+    float sacc[32], pacc[32];
+    ipt::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      ipt::wgmma_ss<64, 0, 0>(sacc, q_desc + 2 * kk, dk_desc + 2 * kk, kk);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      ipt::wgmma_ss<64, 0, 0>(pacc, do_desc + 2 * kk, dv_desc + 2 * kk, kk);
+    ipt::wgmma_commit();
+    ipt::wgmma_wait_all();
+    ipt::fence_regs(sacc);
+    ipt::fence_regs(pacc);
+
+    // P (dropped) into sacc, dS into pacc
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int hh = (e / 2) % 2;
+      const int col = k0 + 8 * (e / 4) + c0 + (e % 2);
+      const bool ok = rok[hh] && col < s_len;
+      const float p = ok ? exp2f(sacc[e] * s2 - lrow[hh]) : 0.f;
+      const float dp = drop.apply(pacc[e], rkey[hh], col);
+      sacc[e] = drop.apply(p, rkey[hh], col);
+      pacc[e] = p * (dp - drow[hh]);
+    }
+    // both as bf16 to the swizzled shared tiles; dS also as the A operand
+    // of dQ's k-slices (16 keys each)
+    uint32_t dsa[4][4];
+#pragma unroll
+    for (int e = 0; e < 32; e += 2) {
+      const int r = r0 + 8 * ((e / 2) % 2);
+      const int c = 8 * (e / 4) + c0;
+      const uint32_t at = ipt::swz<128>(r, c);
+      *reinterpret_cast<uint32_t*>(gbase + L::kP + at) = ipt::pack_bf16(sacc[e], sacc[e + 1]);
+      const uint32_t ds2 = ipt::pack_bf16(pacc[e], pacc[e + 1]);
+      *reinterpret_cast<uint32_t*>(gbase + L::kDS + at) = ds2;
+      dsa[e / 8][(e % 8) / 2] = ds2;
+    }
+    ipt::fence_async_smem();
+    ipt::wg_sync();
+
+    // dV += P^T dO, dK += dS^T Q (k-slices of 16 query rows), dQ share = dS K
+    // (k-slices of 16 keys)
+    float dq_acc[D / 2];
+    ipt::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      ipt::wgmma_ss<D, 1, 1>(dv_acc, dp_desc + (16 * kk * 128 >> 4), do_desc + (16 * kk * RB >> 4), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      ipt::wgmma_ss<D, 1, 1>(dk_acc, ds_desc + (16 * kk * 128 >> 4), q_desc + (16 * kk * RB >> 4), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      ipt::wgmma_rs<D, 1>(dq_acc, dsa[kk], dk_desc + (16 * kk * RB >> 4), kk);
+    ipt::wgmma_commit();
+    ipt::wgmma_wait_all();
+    ipt::fence_regs(dv_acc);
+    ipt::fence_regs(dk_acc);
+    ipt::fence_regs(dq_acc);
+
+    if (tid == 0) ipt::bulk_wait_read();  // the last reduce-add has read the dQ tile
+    ipt::wg_sync();  // every warp is done with this stage, P, dS and the dQ tile
+    if (tid == 0 && i + kStages < nq) {
+      ipt::mbar_expect_tx(bar_q + 8 * st, 2 * L::kTile);
+      ipt::tma_load_3d(sq, &qmap, bar_q + 8 * st, h * D, (i + kStages) * kRows, b);
+      ipt::tma_load_3d(sdo, &domap, bar_q + 8 * st, h * D, (i + kStages) * kRows, b);
+    }
+    float* dqs = reinterpret_cast<float*>(gbase + L::kDQ);
+#pragma unroll
+    for (int jb = 0; jb < D / 8; ++jb) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<float2*>(dqs + (r0 + 8 * hh) * D + 8 * jb + c0) =
+            make_float2(dq_acc[4 * jb + 2 * hh] * scale, dq_acc[4 * jb + 2 * hh + 1] * scale);
+    }
+    ipt::fence_async_smem();
+    ipt::wg_sync();
+    if (tid == 0) {
+      ipt::tma_reduce_add_3d(&dqmap, base + L::kDQ, h * D, q0, b);
+      ipt::bulk_commit();
+    }
+  }
+  if (tid == 0) ipt::bulk_wait_all();
+
+  // dK (scaled) and dV: accumulator rows are keys, columns are D
+  const int ld = heads * D;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int key = k0 + r0 + 8 * hh;
+    if (key < s_len) {
+      const size_t at = ((size_t)b * s_len + key) * ld + h * D + c0;
+#pragma unroll
+      for (int jb = 0; jb < D / 8; ++jb) {
+        *reinterpret_cast<uint32_t*>(dk + at + 8 * jb) =
+            ipt::pack_bf16(dk_acc[4 * jb + 2 * hh] * scale, dk_acc[4 * jb + 2 * hh + 1] * scale);
+        *reinterpret_cast<uint32_t*>(dv + at + 8 * jb) =
+            ipt::pack_bf16(dv_acc[4 * jb + 2 * hh], dv_acc[4 * jb + 2 * hh + 1]);
+      }
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void* dout,
+                        const void* lse, const void* delta, void* dq, void* dk, void* dv, int B,
+                        int T_len, int S_len, int H, ipt::Dropout drop, cudaStream_t stream) {
+  CUtensorMap qm, km, vm, dom, dqm;
+  cudaError_t err;
+  if ((err = ipt::packed_map(&qm, q, false, B, T_len, H, D)) != cudaSuccess) return err;
+  if ((err = ipt::packed_map(&km, k, false, B, S_len, H, D)) != cudaSuccess) return err;
+  if ((err = ipt::packed_map(&vm, v, false, B, S_len, H, D)) != cudaSuccess) return err;
+  if ((err = ipt::packed_map(&dom, dout, false, B, T_len, H, D)) != cudaSuccess) return err;
+  if ((err = ipt::packed_map(&dqm, dq, true, B, T_len, H, D)) != cudaSuccess) return err;
+  constexpr int smem = BwdSmem<D>::kBytes;
+  const auto kernel = bwd_wgmma_kernel<D>;
+  static int smem_set_for = -1;
+  err = ipt::allow_smem(reinterpret_cast<const void*>(kernel), smem, &smem_set_for);
+  if (err != cudaSuccess) return err;
+  dim3 grid((S_len + kKeys - 1) / kKeys, B * H);
+  kernel<<<grid, kWgThreads, smem, stream>>>(
+      qm, km, vm, dom, dqm, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), T_len, S_len, H,
+      1.f / sqrtf((float)D), drop);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // q/dout (B, T, H*D), k/v (B, S, H*D), lse/delta (B, H, T) fp32, dq
-// (B, T, H*D) fp32 zero-filled by the caller, dk/dv like k; all contiguous.
-// Dropout arguments as flash_fwd's. Returns the CUDA error of the launch (0
-// on success).
+// (B, T, H*D) fp32 zero-filled by the caller, dk/dv like k; all contiguous,
+// q/k/v/dout/dq 16-byte aligned (TMA). Dropout arguments as flash_fwd's.
+// Returns the CUDA error of the launch (0 on success).
 extern "C" int flash_bwd(const void* q, const void* k, const void* v,
                          const void* dout, const void* lse, const void* delta,
                          void* dq, void* dk, void* dv, int B, int T, int S,
@@ -197,8 +449,8 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v,
   if (dtype == ipt::kFloat32 && D == 64)
     return (int)launch<float, 64>(q, k, v, dout, lse, delta, dq, dk, dv, B, T, S, H, drop, st);
   if (dtype == ipt::kBFloat16 && D == 32)
-    return (int)launch<__nv_bfloat16, 32>(q, k, v, dout, lse, delta, dq, dk, dv, B, T, S, H, drop, st);
+    return (int)launch_bf16<32>(q, k, v, dout, lse, delta, dq, dk, dv, B, T, S, H, drop, st);
   if (dtype == ipt::kBFloat16 && D == 64)
-    return (int)launch<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dq, dk, dv, B, T, S, H, drop, st);
+    return (int)launch_bf16<64>(q, k, v, dout, lse, delta, dq, dk, dv, B, T, S, H, drop, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -362,6 +362,14 @@ def _check(q, k, v, num_heads, rate, q_like=(), k_like=()):
         raise ValueError(f"unsupported device {q.device}")
 
 
+def _aligned(x):
+    """`x` contiguous at a 16-byte aligned address, as the bf16 kernels'
+    TMA tensor maps require (a view into a larger buffer may start between
+    16-byte boundaries; it is then copied)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def _check_rows(x, q, num_heads, name):
     if x.dtype != torch.float32 or x.shape != (q.shape[0], num_heads, q.shape[1]):
         raise ValueError(f"{name} must be (B, H, T) float32")
@@ -373,7 +381,7 @@ def flash_fwd(q, k, v, num_heads, rate=0.0, seed=0):
     _check(q, k, v, num_heads, rate)
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, num_heads, rate, seed)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (_aligned(x) for x in (q, k, v))
     b, t, dim = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b, num_heads, t), device=q.device, dtype=torch.float32)
@@ -398,7 +406,8 @@ def flash_bwd(q, k, v, o, lse, do, num_heads, rate=0.0, seed=0):
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, o, lse, do, num_heads, rate, seed)
     _check_rows(lse, q, num_heads, "L")
-    q, k, v, do, lse = (x.contiguous() for x in (q, k, v, do, lse))
+    q, k, v, do = (_aligned(x) for x in (q, k, v, do))
+    lse = lse.contiguous()
     b, t, dim = q.shape
     delta = _delta(do, o, num_heads)
     dq = torch.zeros((b, t, dim), device=q.device, dtype=torch.float32)
