@@ -30,9 +30,10 @@
 // Q and dO tiles of 64 query rows stream through a 2-stage TMA ring (one
 // mbarrier a stage). L and delta, 256 bytes a tile, go straight from
 // global memory into the registers of the threads that own their rows
-// (four values a thread): a TMA copy would add two tensor maps to every
-// launch's host cost and a shared-memory round trip, and a (B, H, T) row
-// with odd T cannot be a 2-D map (TMA's 16-byte stride rule). For each
+// (four values a thread). A 1-D tensor map over the flat (B*H*T) fp32
+// arrays could bring them by TMA, but it would add two map encodes to the
+// host cost of every launch, on paths that are host-bound, and a round
+// trip through shared memory, to save four loads a thread a tile. For each
 // query tile: S = Q K^T and dP = dO V^T by wgmma (both
 // operands K-major); P = exp2(S scale log2e - L log2e) and dS = P (dP -
 // delta) on the accumulator registers, with the keep bits of each

@@ -13,6 +13,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -42,7 +43,8 @@ def _target(name):
 
 def build_all(names=SOURCES):
     """Compile every missing library, one nvcc per source, all at once.
-    Returns {name: ptxas report}; raises if any build fails."""
+    Returns {name: (ptxas report, seconds its nvcc took)}; raises if any
+    build fails, after stopping the others."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
@@ -50,16 +52,35 @@ def build_all(names=SOURCES):
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        # the report goes to a file, so no nvcc waits on a pipe nobody reads
+        log = tmp.with_suffix(".log").open("w+")
         cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True), tmp, out)
+        procs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT),
+                       log, tmp, out, time.perf_counter())
     reports = {}
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
-        os.replace(tmp, out)
-        reports[name] = log
+    try:
+        while procs:
+            for name, (proc, log, tmp, out, t0) in list(procs.items()):
+                if proc.poll() is None:
+                    continue
+                secs = time.perf_counter() - t0
+                del procs[name]
+                log.seek(0)
+                text = log.read()
+                log.close()
+                os.unlink(log.name)
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed for {name}.cu:\n{text}")
+                os.replace(tmp, out)
+                reports[name] = (text, secs)
+            time.sleep(0.02)
+    finally:
+        for proc, log, tmp, *_ in procs.values():
+            proc.kill()
+            proc.wait()
+            log.close()
+            os.unlink(log.name)
+            tmp.unlink(missing_ok=True)
     return reports
 
 
