@@ -13,10 +13,11 @@ Phases, each of which fails the run (non-zero exit, no "ok" line):
      with its device time beside the plain version's, one PyTorch library
      call's where one computes the same function
      (F.scaled_dot_product_attention, a yardstick only) and the bound (see
-     `bound_ms`), and at the fusion shape flash_fwd's and flash_bwd's host
-     time per call; the split formulation's kernels also against the merged
-     ones, and twice with equal outputs; (b) flash_fwd and flash_bwd at
-     ragged shapes that end inside their 64-row tiles;
+     `bound_ms`), and at the fusion shape the host time per call of the four
+     kernels on wgmma and TMA (flash_fwd, flash_bwd, flash_dq, flash_dkv);
+     the split formulation's kernels also against the merged ones, and twice
+     with equal outputs; (b) those four kernels at ragged shapes that end
+     inside their 64-row tiles;
   4. full-width fp32 `predict` of configs/interactron.yaml (seed 0): the card
      against the CPU, which runs the plain versions;
   5. the served path in bf16: 4 episodes of next_action at s=1..4 and then
@@ -64,15 +65,15 @@ SHAPES = [
     ("fusion", 1, 2060, 2060, 8, 64),
     ("fusion_last", 1, 255, 2060, 8, 64),
 ]
-# (name, B, T, S, H, D) where T and S end inside flash_fwd's and flash_bwd's
-# 64-row tiles
+# (name, B, T, S, H, D) where T and S end inside the wgmma kernels' 64-row
+# tiles
 RAGGED = [
     ("ragged_1x1", 2, 1, 1, 8, 64),
     ("ragged_d32", 3, 65, 129, 8, 32),
     ("ragged_s255", 1, 2060, 255, 8, 64),
 ]
 # the kernels whose bf16 instantiations run on wgmma and TMA
-REDESIGNED = ("fwd", "bwd")
+REDESIGNED = ("fwd", "bwd", "dq", "dkv")
 # max abs error allowed, as a multiple of the reference's max abs value
 TOL = {
     torch.float32: (1e-4, "fp32 in and out: summation order, exp2f of pre-scaled logits, "
@@ -337,13 +338,14 @@ def check_kernels(fa):
 
 
 def check_ragged(fa):
-    """Phase 3b: flash_fwd and flash_bwd against their plain versions where
-    T and S end inside the kernels' 64-row tiles, with B > 1 (a tile's tail
-    must not read the next batch element), in fp32 and bf16 at rates 0 and
-    0.1. With one key (S = 1) the softmax has no gradient: dq = dk = 0
-    exactly and both sides hold rounding noise of dS = P (dP - delta), where
-    dP and delta cancel; there dq and dk are held against the size of the
-    terms that cancel, scale x max|dO v^T| x max|k| (max|q| for dk)."""
+    """Phase 3b: flash_fwd, flash_bwd, flash_dq and flash_dkv against their
+    plain versions where T and S end inside the kernels' 64-row tiles, with
+    B > 1 (a tile's tail must not read the next batch element), in fp32 and
+    bf16 at rates 0 and 0.1. With one key (S = 1) the softmax has no
+    gradient: dq = dk = 0 exactly and both sides hold rounding noise of
+    dS = P (dP - delta), where dP and delta cancel; there dq and dk (of both
+    formulations) are held against the size of the terms that cancel,
+    scale x max|dO v^T| x max|k| (max|q| for dk)."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     for name, b, t, s, h, d in RAGGED:
         for dtype in (torch.float32, torch.bfloat16):
@@ -357,16 +359,24 @@ def check_ragged(fa):
             for rate in (0.0, RATE):
                 drop = (rate, SEED if rate else 0)
                 o_ref, lse_ref = fa.flash_fwd_plain(*f32[:3], h, *drop)
-                dq_ref, dk_ref, dv_ref = fa.flash_bwd_plain(*f32[:3], o_ref, lse_ref, f32[3], h,
-                                                            *drop)
+                res_ref = (o_ref, lse_ref, f32[3], h, *drop)
+                dq_ref, dk_ref, dv_ref = fa.flash_bwd_plain(*f32[:3], *res_ref)
+                dq_split_ref = fa.flash_dq_plain(*f32[:3], *res_ref)
+                dk_split_ref, dv_split_ref = fa.flash_dkv_plain(*f32[:3], *res_ref)
                 o, lse = fa.flash_fwd(q, k, v, h, *drop)
-                dq, dk, dv = fa.flash_bwd(q, k, v, o, lse, do, h, *drop)
+                res = (o, lse, do, h, *drop)
+                dq, dk, dv = fa.flash_bwd(q, k, v, *res)
+                dq_split = fa.flash_dq(q, k, v, *res)
+                dk_split, dv_split = fa.flash_dkv(q, k, v, *res)
                 torch.cuda.synchronize()
                 label = f"{name:12s} {str(dtype)[6:]:8s} rate {rate:g}"
+                q_floor = cancel * f32[1].abs().max().item()
+                k_floor = cancel * f32[0].abs().max().item()
                 _check_errs(label, (("O", o, o_ref), ("L", lse, lse_ref), ("dv", dv, dv_ref),
-                                    ("dq", dq, dq_ref, cancel * f32[1].abs().max().item()),
-                                    ("dk", dk, dk_ref, cancel * f32[0].abs().max().item())),
-                            rel, why)
+                                    ("dq", dq, dq_ref, q_floor), ("dk", dk, dk_ref, k_floor),
+                                    ("dq_split", dq_split, dq_split_ref, q_floor),
+                                    ("dk_split", dk_split, dk_split_ref, k_floor),
+                                    ("dv_split", dv_split, dv_split_ref)), rel, why)
 
 
 def synthetic_frames(seed, s=5, size=300):
@@ -547,7 +557,8 @@ def profile_run(fn):
     # substring matches; no kernel name contains another's
     groups = {"flash_fwd (fwd_kernel, fwd_wgmma_kernel)": ("fwd_kernel", "fwd_wgmma_kernel"),
               "flash_bwd (bwd_kernel, bwd_wgmma_kernel)": ("bwd_kernel", "bwd_wgmma_kernel"),
-              "flash_dq (dq_kernel)": ("dq_kernel",), "flash_dkv (dkv_kernel)": ("dkv_kernel",),
+              "flash_dq (dq_kernel, dq_wgmma_kernel)": ("dq_kernel", "dq_wgmma_kernel"),
+              "flash_dkv (dkv_kernel, dkv_wgmma_kernel)": ("dkv_kernel", "dkv_wgmma_kernel"),
               "flash_so (so_kernel)": ("so_kernel",),
               "flash_so_row (sov_row_kernel)": ("sov_row_kernel",),
               "flash_so_col (sov_col_kernel)": ("sov_col_kernel",),
@@ -826,7 +837,7 @@ def main():
 
     log("[3] kernels vs plain versions")
     kres = check_kernels(fa)
-    log("  (b) flash_fwd and flash_bwd at ragged shapes")
+    log("  (b) flash_fwd, flash_bwd, flash_dq and flash_dkv at ragged shapes")
     check_ragged(fa)
 
     log("[4] full-width fp32 predict, card vs CPU")

@@ -18,17 +18,31 @@
 // dtype before dV and dS to q's dtype before dK, as the TPU kernels do.
 //
 // Bound on the H100: four (T x S x D) products a head, 8*B*H*T*S*D FLOPs,
-// so at the fusion shape (B=1, H=8, T=S=2060, D=64) about 17 GFLOP, bound by
-// operations (~18 us at 989 TFLOP/s bf16).
+// so at the fusion shape (B=1, H=8, T=S=2060, D=64) about 17.4 GFLOP, bound
+// by operations (0.0176 ms at 989 TFLOP/s bf16; with dropout the keep-bit
+// hash, ~12 integer ops an element, bounds it at 0.0244 ms).
 //
-// Design: flash_bwd.cu's CTA without its dQ share. One CTA owns (b, h, 32
-// keys), keeps that K/V tile and its dK/dV accumulators (fp32 registers)
-// for its whole life and loops over the query rows 32 at a time, so each
-// output element is written once by the CTA that owns it: no atomics, and
-// two runs give bitwise-equal results. The ragged edge is masked by index:
-// query rows >= T and keys >= S get P = dS = 0, and keys >= S are never
-// written. Arithmetic is scalar fp32 FMA through ~41 KB of static shared
-// memory; tensor cores come later.
+// bf16 (the configuration's dtype): tensor cores, `dkv_wgmma_kernel` of
+// csrc/bwd_wgmma.cuh: flash_bwd.cu's K/V-resident warpgroup without the dQ
+// share. One warpgroup (128 threads) owns (b, h, 64 keys): K and V are
+// loaded once by TMA, dK/dV stay in fp32 wgmma accumulators for the CTA's
+// life, Q/dO 64-row tiles stream through a 2-stage TMA/mbarrier ring, S and
+// dP are formed by wgmma from shared memory, and P (dropped) and dS are
+// written as bf16 to swizzled shared tiles for the transposed products
+// dV += P^T dO and dK += dS^T q. Each dK/dV element is written once, by the
+// CTA that owns its key: no atomics and no TMA reduce-add, so two runs give
+// bitwise-equal results. Shared memory a CTA: about 65 KB at D=64 (41 KB at
+// D=32).
+//
+// fp32: the scalar-FMA kernel below (`dkv_kernel`), unchanged from the
+// first port: one CTA owns (b, h, 32 keys), keeps that K/V tile and its
+// dK/dV accumulators in fp32 registers and loops over the query rows 32 at a
+// time, writing each output element once. TF32 tensor cores would round the
+// operands to 10 mantissa bits and break the fp32 card-vs-CPU checks
+// (1e-4 x max|ref|); the configuration runs bf16, so fp32 exists for those
+// checks. The ragged edge is masked by index: query rows >= T and keys >= S
+// get P = dS = 0, and keys >= S are never written.
+#include "bwd_wgmma.cuh"
 #include "common.cuh"
 #include "dropout.cuh"
 
@@ -167,8 +181,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
 }  // namespace
 
 // q/dout (B, T, H*D), k/v and dk/dv (B, S, H*D), lse/delta (B, H, T) fp32;
-// all contiguous. Dropout arguments as flash_fwd's. Returns the CUDA error
-// of the launch (0 on success).
+// all contiguous, bf16 q/k/v/dout 16-byte aligned (TMA). Dropout arguments
+// as flash_fwd's. Returns the CUDA error of the launch (0 on success).
 extern "C" int flash_dkv(const void* q, const void* k, const void* v, const void* dout,
                          const void* lse, const void* delta, void* dk, void* dv, int B, int T,
                          int S, int H, int D, int dtype, unsigned seed, unsigned threshold,
@@ -176,12 +190,15 @@ extern "C" int flash_dkv(const void* q, const void* k, const void* v, const void
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const ipt::Dropout drop{seed, threshold, inv, drop_on};
   if (T <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
-#define IPT_DKV_LAUNCH(TT, DD) \
-  return (int)launch<TT, DD>(q, k, v, dout, lse, delta, dk, dv, B, T, S, H, drop, st)
-  if (dtype == ipt::kFloat32 && D == 32) IPT_DKV_LAUNCH(float, 32);
-  if (dtype == ipt::kFloat32 && D == 64) IPT_DKV_LAUNCH(float, 64);
-  if (dtype == ipt::kBFloat16 && D == 32) IPT_DKV_LAUNCH(__nv_bfloat16, 32);
-  if (dtype == ipt::kBFloat16 && D == 64) IPT_DKV_LAUNCH(__nv_bfloat16, 64);
-#undef IPT_DKV_LAUNCH
+  if (dtype == ipt::kFloat32 && D == 32)
+    return (int)launch<float, 32>(q, k, v, dout, lse, delta, dk, dv, B, T, S, H, drop, st);
+  if (dtype == ipt::kFloat32 && D == 64)
+    return (int)launch<float, 64>(q, k, v, dout, lse, delta, dk, dv, B, T, S, H, drop, st);
+  if (dtype == ipt::kBFloat16 && D == 32)
+    return (int)ipt::launch_kv_resident<32, false>(q, k, v, dout, lse, delta, nullptr, dk, dv, B,
+                                                   T, S, H, drop, st);
+  if (dtype == ipt::kBFloat16 && D == 64)
+    return (int)ipt::launch_kv_resident<64, false>(q, k, v, dout, lse, delta, nullptr, dk, dv, B,
+                                                   T, S, H, drop, st);
   return (int)cudaErrorInvalidValue;
 }

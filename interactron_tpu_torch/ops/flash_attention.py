@@ -30,7 +30,8 @@ Every wrapper takes CPU tensors through its plain version and CUDA tensors
 through its kernel in `interactron_tpu_torch/csrc/` (built at first use, see
 ops/cuda_build.py). There is no fallback: a CUDA tensor the kernel does not
 take raises. The kernels read contiguous packed tensors; the wrappers call
-`.contiguous()`.
+`.contiguous()`, and copy a bf16 TMA operand that does not start at a
+16-byte aligned address (`_aligned`).
 
 Dropout. The TPU kernels draw their keep masks from the TPU's PRNG keyed by
 (seed, head, q-block, k-block) tiles, which ties every pass to one block
@@ -421,16 +422,16 @@ def flash_bwd(q, k, v, o, lse, do, num_heads, rate=0.0, seed=0):
     return dq.to(q.dtype), dk, dv
 
 
-def flash_dq(q, k, v, o, lse, do, num_heads, rate=0.0, seed=0):
-    """dq of packed attention in q's dtype, one CTA per query tile (the
-    split backward's first half)."""
-    _check(q, k, v, num_heads, rate, q_like=(o, do))
-    if q.device.type == "cpu":
-        return flash_dq_plain(q, k, v, o, lse, do, num_heads, rate, seed)
+def _split_operands(q, k, v, o, lse, do, num_heads):
+    """The CUDA operands of the split backward's two kernels, prepared once
+    for both: (q, k, v, dO aligned for TMA, L contiguous, delta)."""
     _check_rows(lse, q, num_heads, "L")
-    q, k, v, do, lse = (x.contiguous() for x in (q, k, v, do, lse))
+    q, k, v, do = (_aligned(x) for x in (q, k, v, do))
+    return q, k, v, do, lse.contiguous(), _delta(do, o, num_heads)
+
+
+def _dq_launch(q, k, v, do, lse, delta, num_heads, rate, seed):
     b, t, dim = q.shape
-    delta = _delta(do, o, num_heads)
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
         _launch("flash_dq", *(x.data_ptr() for x in (q, k, v, do, lse, delta, dq)),
@@ -439,16 +440,8 @@ def flash_dq(q, k, v, o, lse, do, num_heads, rate=0.0, seed=0):
     return dq
 
 
-def flash_dkv(q, k, v, o, lse, do, num_heads, rate=0.0, seed=0):
-    """(dk, dv) of packed attention in k's dtype, one CTA per key tile (the
-    split backward's second half, for both values of FLASH_DKV)."""
-    _check(q, k, v, num_heads, rate, q_like=(o, do))
-    if q.device.type == "cpu":
-        return flash_dkv_plain(q, k, v, o, lse, do, num_heads, rate, seed)
-    _check_rows(lse, q, num_heads, "L")
-    q, k, v, do, lse = (x.contiguous() for x in (q, k, v, do, lse))
+def _dkv_launch(q, k, v, do, lse, delta, num_heads, rate, seed):
     b, t, dim = q.shape
-    delta = _delta(do, o, num_heads)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     with torch.cuda.device(q.device):
@@ -458,13 +451,36 @@ def flash_dkv(q, k, v, o, lse, do, num_heads, rate=0.0, seed=0):
     return dk, dv
 
 
+def flash_dq(q, k, v, o, lse, do, num_heads, rate=0.0, seed=0):
+    """dq of packed attention in q's dtype, one CTA per query tile (the
+    split backward's first half)."""
+    _check(q, k, v, num_heads, rate, q_like=(o, do))
+    if q.device.type == "cpu":
+        return flash_dq_plain(q, k, v, o, lse, do, num_heads, rate, seed)
+    return _dq_launch(*_split_operands(q, k, v, o, lse, do, num_heads), num_heads, rate, seed)
+
+
+def flash_dkv(q, k, v, o, lse, do, num_heads, rate=0.0, seed=0):
+    """(dk, dv) of packed attention in k's dtype, one CTA per key tile (the
+    split backward's second half, for both values of FLASH_DKV)."""
+    _check(q, k, v, num_heads, rate, q_like=(o, do))
+    if q.device.type == "cpu":
+        return flash_dkv_plain(q, k, v, o, lse, do, num_heads, rate, seed)
+    return _dkv_launch(*_split_operands(q, k, v, o, lse, do, num_heads), num_heads, rate, seed)
+
+
 def flash_grads(q, k, v, o, lse, do, num_heads, rate=0.0, seed=0):
     """(dq, dk, dv) by the formulation FLASH_BWD selects: `flash_bwd` when
-    merged, `flash_dq` then `flash_dkv` when split."""
+    merged, `flash_dq` then `flash_dkv` when split (on the card, with delta
+    and the aligned operands prepared once for both)."""
     if formulation()["bwd"] == "merged":
         return flash_bwd(q, k, v, o, lse, do, num_heads, rate, seed)
-    dq = flash_dq(q, k, v, o, lse, do, num_heads, rate, seed)
-    return (dq, *flash_dkv(q, k, v, o, lse, do, num_heads, rate, seed))
+    _check(q, k, v, num_heads, rate, q_like=(o, do))
+    if q.device.type == "cpu":
+        return (flash_dq_plain(q, k, v, o, lse, do, num_heads, rate, seed),
+                *flash_dkv_plain(q, k, v, o, lse, do, num_heads, rate, seed))
+    ops = _split_operands(q, k, v, o, lse, do, num_heads)
+    return (_dq_launch(*ops, num_heads, rate, seed), *_dkv_launch(*ops, num_heads, rate, seed))
 
 
 def flash_so(q, k, v, do, a, bc, c, lse, delta, num_heads, rate=0.0, seed=0):

@@ -6,11 +6,12 @@ without the suite's conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py -m cuda -q
 
 Shapes are the served and train paths' E (DETR encoder), F (fusion) and L
-(last fusion block), and ragged shapes that end inside flash_fwd's and
-flash_bwd's 64-row tiles. Tolerances: bf16 kernels against the plain version in
-fp32 on the same bf16 inputs, 2e-2 x max|ref| (outputs, P, dS and the
-second-order products rounded to bf16); fp32, 1e-4 x max|ref| (summation
-order and the merged kernels' unordered fp32 atomics). The split
+(last fusion block), and ragged shapes that end inside the wgmma kernels'
+64-row tiles (flash_fwd, flash_bwd, flash_dq, flash_dkv). Tolerances: bf16
+kernels against the plain version in fp32 on the same bf16 inputs,
+2e-2 x max|ref| (outputs, P, dS and the second-order products rounded to
+bf16); fp32, 1e-4 x max|ref| (summation order and the merged kernels'
+unordered fp32 atomics). The split
 formulation's kernels (flash_dq, flash_dkv, flash_so_row, flash_so_col) are
 also held against the merged ones to the same tolerance, and must give
 bitwise-equal outputs run to run (they use no atomics). The mask kernel must
@@ -22,8 +23,8 @@ import torch
 
 from interactron_tpu_torch.ops import flash_attention as tfa
 
-# (B, T, S, D) where T and S end inside flash_fwd's and flash_bwd's 64-row
-# tiles, with B > 1 where a tile's tail must not read the next batch element
+# (B, T, S, D) where T and S end inside the wgmma kernels' 64-row tiles,
+# with B > 1 where a tile's tail must not read the next batch element
 RAGGED = [(2, 1, 1, 64), (3, 65, 129, 32), (1, 2060, 255, 64)]
 
 
@@ -38,12 +39,13 @@ def _cuda():
 @pytest.mark.parametrize("b,t,s,hd", [(5, 361, 361, 32), (1, 2060, 2060, 64),
                                       (1, 255, 2060, 64), *RAGGED])
 def test_kernels_match_plain_on_cuda(b, t, s, hd, dtype, rate):
-    """flash_fwd, flash_bwd and flash_so against their plain versions. With
-    one key (S = 1) the softmax has no gradient: dq = dk = 0 exactly, and
-    both sides hold rounding noise of dS = P (dP - delta), where dP and delta
-    cancel. There dq and dk are held against the size of the terms that
-    cancel, rel x scale x max|dO v^T| x max|k| (max|q| for dk), and flash_so,
-    whose outputs are as degenerate, is not run."""
+    """flash_fwd, flash_bwd, flash_dq, flash_dkv and flash_so against their
+    plain versions. With one key (S = 1) the softmax has no gradient:
+    dq = dk = 0 exactly, and both sides hold rounding noise of
+    dS = P (dP - delta), where dP and delta cancel. There dq and dk (of both
+    formulations) are held against the size of the terms that cancel,
+    rel x scale x max|dO v^T| x max|k| (max|q| for dk), and flash_so, whose
+    outputs are as degenerate, is not run."""
     _cuda()
     h, seed = 8, 4321
     dt = getattr(torch, dtype)
@@ -55,21 +57,26 @@ def test_kernels_match_plain_on_cuda(b, t, s, hd, dtype, rate):
     so = s > 1
     o_ref, lse_ref = tfa.flash_fwd_plain(*f32[:3], h, rate, seed)
     delta = tfa._delta(f32[3], o_ref, h)
-    refs = (o_ref, lse_ref, *tfa.flash_bwd_plain(*f32[:3], o_ref, lse_ref, f32[3], h, rate, seed),
+    res_ref = (o_ref, lse_ref, f32[3], h, rate, seed)
+    refs = (o_ref, lse_ref, *tfa.flash_bwd_plain(*f32[:3], *res_ref),
+            tfa.flash_dq_plain(*f32[:3], *res_ref), *tfa.flash_dkv_plain(*f32[:3], *res_ref),
             *(tfa.flash_so_plain(*f32, lse_ref, delta, h, rate, seed) if so else ()))
     tfa.reset_launches()
     o, lse = tfa.flash_fwd(q, k, v, h, rate, seed)
-    got = (o, lse, *tfa.flash_bwd(q, k, v, o, lse, do, h, rate, seed),
+    res = (o, lse, do, h, rate, seed)
+    got = (o, lse, *tfa.flash_bwd(q, k, v, *res), tfa.flash_dq(q, k, v, *res),
+           *tfa.flash_dkv(q, k, v, *res),
            *(tfa.flash_so(q, k, v, do, a, bc, c, lse_ref, delta, h, rate, seed) if so else ()))
-    assert tfa.launches == {"flash_fwd": 1, "flash_bwd": 1, "flash_dq": 0, "flash_dkv": 0,
+    assert tfa.launches == {"flash_fwd": 1, "flash_bwd": 1, "flash_dq": 1, "flash_dkv": 1,
                             "flash_so": int(so), "flash_so_row": 0, "flash_so_col": 0,
                             "dropout_mask": 0}
     scales = [r.abs().max().item() for r in refs]
     if s == 1:
         dp = (tfa._heads(f32[3], h) @ tfa._heads(f32[2], h).transpose(-1, -2)).abs().max().item()
         cancel = dp / hd ** 0.5
-        scales[2] = max(scales[2], cancel * f32[1].abs().max().item())
-        scales[3] = max(scales[3], cancel * f32[0].abs().max().item())
+        # dq and dk of flash_bwd (2, 3) and of flash_dq, flash_dkv (5, 6)
+        for i, x in ((2, f32[1]), (3, f32[0]), (5, f32[1]), (6, f32[0])):
+            scales[i] = max(scales[i], cancel * x.abs().max().item())
     for g, r, scale in zip(got, refs, scales):
         assert (g.float() - r).abs().max().item() <= rel * scale
 
