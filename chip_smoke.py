@@ -13,11 +13,11 @@ Phases, each of which fails the run (non-zero exit, no "ok" line):
      with its device time beside the plain version's, one PyTorch library
      call's where one computes the same function
      (F.scaled_dot_product_attention, a yardstick only) and the bound (see
-     `bound_ms`), and at the fusion shape the host time per call of the four
-     kernels on wgmma and TMA (flash_fwd, flash_bwd, flash_dq, flash_dkv);
-     the split formulation's kernels also against the merged ones, and twice
-     with equal outputs; (b) those four kernels at ragged shapes that end
-     inside their 64-row tiles;
+     `bound_ms`), and at the fusion shape the host time per call of the six
+     kernels on wgmma and TMA (flash_fwd, flash_bwd, flash_dq, flash_dkv,
+     flash_so, flash_so_row); the split formulation's kernels also against
+     the merged ones, and twice with equal outputs; (b) those six kernels at
+     ragged shapes that end inside their 64-row tiles;
   4. full-width fp32 `predict` of configs/interactron.yaml (seed 0): the card
      against the CPU, which runs the plain versions;
   5. the served path in bf16: 4 episodes of next_action at s=1..4 and then
@@ -73,7 +73,7 @@ RAGGED = [
     ("ragged_s255", 1, 2060, 255, 8, 64),
 ]
 # the kernels whose bf16 instantiations run on wgmma and TMA
-REDESIGNED = ("fwd", "bwd", "dq", "dkv")
+REDESIGNED = ("fwd", "bwd", "dq", "dkv", "so", "so_row")
 # max abs error allowed, as a multiple of the reference's max abs value
 TOL = {
     torch.float32: (1e-4, "fp32 in and out: summation order, exp2f of pre-scaled logits, "
@@ -337,20 +337,36 @@ def check_kernels(fa):
     return results
 
 
+def so_cancel_floors(fa, f32, h, rate):
+    """With one key (S = 1) g_S, dS and g_dp of the second-order kernels
+    cancel to zero (g_P against s_gp, dP against delta, g_dS against g_D),
+    so c_q, c_k and c_v are rounding noise on both sides. Their floors are
+    the sizes of the terms that cancel, through each output's products."""
+    qh, kh, vh, doh, ah, bh, ch = (fa._heads(x, h) for x in f32)
+    scale, inv = qh.shape[-1] ** -0.5, 1.0 / (1.0 - rate)
+    mx = lambda x: x.abs().max().item()
+    dp = inv * mx(doh @ vh.transpose(-1, -2))
+    gds = scale * mx(ah @ kh.transpose(-1, -2) + qh @ bh.transpose(-1, -2))
+    gp = inv * mx(doh @ ch.transpose(-1, -2)) + gds * dp
+    return {"c_q": scale * (gp * mx(kh) + dp * mx(bh)),
+            "c_k": scale * (gp * mx(qh) + dp * mx(ah)), "c_v": inv * gds * mx(doh)}
+
+
 def check_ragged(fa):
-    """Phase 3b: flash_fwd, flash_bwd, flash_dq and flash_dkv against their
-    plain versions where T and S end inside the kernels' 64-row tiles, with
-    B > 1 (a tile's tail must not read the next batch element), in fp32 and
-    bf16 at rates 0 and 0.1. With one key (S = 1) the softmax has no
-    gradient: dq = dk = 0 exactly and both sides hold rounding noise of
-    dS = P (dP - delta), where dP and delta cancel; there dq and dk (of both
-    formulations) are held against the size of the terms that cancel,
-    scale x max|dO v^T| x max|k| (max|q| for dk)."""
+    """Phase 3b: flash_fwd, flash_bwd, flash_dq, flash_dkv, flash_so and
+    flash_so_row against their plain versions where T and S end inside the
+    kernels' 64-row tiles, with B > 1 (a tile's tail must not read the next
+    batch element), in fp32 and bf16 at rates 0 and 0.1. With one key
+    (S = 1) the softmax has no gradient: dq = dk = 0 exactly and both sides
+    hold rounding noise of dS = P (dP - delta), where dP and delta cancel;
+    there dq and dk (of both formulations) are held against the size of the
+    terms that cancel, scale x max|dO v^T| x max|k| (max|q| for dk), and
+    the second-order c_q, c_k, c_v against `so_cancel_floors`."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     for name, b, t, s, h, d in RAGGED:
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v, do = _randn(gen, b, h, d, dtype, (t, s, s, t))
-            f32 = [x.float() for x in (q, k, v, do)]
+            q, k, v, do, a, bc, c = _randn(gen, b, h, d, dtype, (t, s, s, t, t, s, s))
+            f32 = [x.float() for x in (q, k, v, do, a, bc, c)]
             rel, why = TOL[dtype]
             cancel = 0.0  # the floor of dq's and dk's tolerance, over max|k| and max|q|
             if s == 1:
@@ -363,6 +379,18 @@ def check_ragged(fa):
                 dq_ref, dk_ref, dv_ref = fa.flash_bwd_plain(*f32[:3], *res_ref)
                 dq_split_ref = fa.flash_dq_plain(*f32[:3], *res_ref)
                 dk_split_ref, dv_split_ref = fa.flash_dkv_plain(*f32[:3], *res_ref)
+                # the second-order kernels on the plain version's L and D
+                so_in_ref = (*f32, lse_ref, fa._delta(f32[3], o_ref, h))
+                so_ref = fa.flash_so_plain(*so_in_ref, h, *drop)
+                row_ref = fa.flash_so_row_plain(*so_in_ref, h, *drop)
+                so_in = (q, k, v, do, a, bc, c, *so_in_ref[7:])
+                so = fa.flash_so(*so_in, h, *drop)
+                row = fa.flash_so_row(*so_in, h, *drop)
+                floors = so_cancel_floors(fa, f32, h, rate) if s == 1 else {}
+                so_pairs = [(key, got, ref, floors.get(key.removesuffix("_row"), 0.0))
+                            for key, got, ref in zip(("c_q", "c_k", "c_v", "c_dO", "c_q_row",
+                                                      "c_dO_row", "g_D", "s_gp"),
+                                                     (*so, *row), (*so_ref, *row_ref))]
                 o, lse = fa.flash_fwd(q, k, v, h, *drop)
                 res = (o, lse, do, h, *drop)
                 dq, dk, dv = fa.flash_bwd(q, k, v, *res)
@@ -376,7 +404,8 @@ def check_ragged(fa):
                                     ("dq", dq, dq_ref, q_floor), ("dk", dk, dk_ref, k_floor),
                                     ("dq_split", dq_split, dq_split_ref, q_floor),
                                     ("dk_split", dk_split, dk_split_ref, k_floor),
-                                    ("dv_split", dv_split, dv_split_ref)), rel, why)
+                                    ("dv_split", dv_split, dv_split_ref),
+                                    *so_pairs), rel, why)
 
 
 def synthetic_frames(seed, s=5, size=300):
@@ -559,8 +588,9 @@ def profile_run(fn):
               "flash_bwd (bwd_kernel, bwd_wgmma_kernel)": ("bwd_kernel", "bwd_wgmma_kernel"),
               "flash_dq (dq_kernel, dq_wgmma_kernel)": ("dq_kernel", "dq_wgmma_kernel"),
               "flash_dkv (dkv_kernel, dkv_wgmma_kernel)": ("dkv_kernel", "dkv_wgmma_kernel"),
-              "flash_so (so_kernel)": ("so_kernel",),
-              "flash_so_row (sov_row_kernel)": ("sov_row_kernel",),
+              "flash_so (so_kernel, so_wgmma_kernel)": ("so_kernel", "so_wgmma_kernel"),
+              "flash_so_row (sov_row_kernel, so_row_wgmma_kernel)": ("sov_row_kernel",
+                                                                     "so_row_wgmma_kernel"),
               "flash_so_col (sov_col_kernel)": ("sov_col_kernel",),
               "dropout_mask (mask_kernel)": ("mask_kernel",),
               "convolution (cuDNN and friends)": ("conv", "cudnn", "implicit", "xmma", "sm90_",
@@ -837,7 +867,7 @@ def main():
 
     log("[3] kernels vs plain versions")
     kres = check_kernels(fa)
-    log("  (b) flash_fwd, flash_bwd, flash_dq and flash_dkv at ragged shapes")
+    log("  (b) the six wgmma kernels at ragged shapes")
     check_ragged(fa)
 
     log("[4] full-width fp32 predict, card vs CPU")

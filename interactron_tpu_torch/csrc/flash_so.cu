@@ -18,25 +18,40 @@
 //
 // Bound on the H100: twelve (T x S x D) products a head (24*B*H*T*S*D
 // FLOPs), so at the fusion shape (B=1, H=8, T=S=2060, D=64) about 52 GFLOP,
-// bound by operations (~53 us at 989 TFLOP/s bf16).
+// bound by operations (0.0527 ms at 989 TFLOP/s bf16). The two-sweep design
+// below does seventeen: sweep 1 forms the five score products (S, dP,
+// A K^T, Q Bc^T, dO C^T) for the row sums, sweep 2 forms them again beside
+// the seven output products, so its own floor at F is about 0.075 ms. The
+// recompute is what keeps every (T x S) tile on chip and needs no third
+// sweep (the row-sum identity below); the design's answer to its cost is to
+// run all seventeen on the tensor cores.
 //
-// Design: the TPU kernel holds the whole K/V/Bc/C sequence in VMEM and takes
-// both row sums of a q-block in one pass over a (bq, S) tile. Here one CTA
-// owns (b, h, 64 query rows), keeps its q, dO and A rows in shared memory,
-// and sweeps the K/V/Bc/C tiles (32 keys each) twice:
+// Both sweeps: one CTA owns (b, h, 64 query rows) and sweeps the K/V/Bc/C
+// tiles twice:
 //   sweep 1 forms a1 = rowsum(P*g_dS), a2 = rowsum(P*(g_P1 + g_dS*e)) and
 //     a3 = rowsum(P*dp); then g_D = -a1 and rowsum(P*g_P) = a2 + g_D*a3,
 //     since g_P = g_P1 + g_dS*e + g_D*dp, so no third sweep is needed;
 //   sweep 2 recomputes the tile, keeps c_q and c_dO in registers, and adds
-//     the tile's c_k/c_v shares into zeroed fp32 buffers with atomicAdd (the
-//     CTAs that share a key tile run in no order), as flash_bwd.cu does for
-//     dQ; the caller casts them to q's dtype.
-// Four threads share a query row (8 of the tile's 32 keys each; row sums
-// by two warp shuffles). The ragged edge is masked by index (P = 0 outside
-// T x S). Arithmetic is scalar fp32 FMA through ~114 KB of dynamic shared
-// memory, one CTA per SM; tensor cores come later.
+//     the tile's c_k/c_v shares into zeroed fp32 buffers (the CTAs that
+//     share a key tile run in no order); the caller casts them to q's dtype.
+//
+// bf16 (the configuration's dtype): tensor cores, `so_wgmma_kernel`, the
+// Q-resident warpgroup of csrc/so_wgmma.cuh with WithKV = true (one
+// warpgroup a CTA; Q, dO, A once by TMA; K/V/Bc/C 64-key tiles through a
+// 2-stage TMA ring; sweep 2 in 32-key halves; c_k/c_v shares by wgmma from
+// the tile's bf16 g_S, dS, g_dp in shared memory and one TMA reduce-add
+// each per tile: no atomicAdd). 145 KB of shared memory at D=64, one CTA
+// an SM; the header has the register and shared-memory budget.
+//
+// fp32: the scalar-FMA kernel below (`so_kernel`), unchanged from the first
+// port: four threads share a query row (8 of a tile's 32 keys each; row
+// sums by two warp shuffles), c_k/c_v by atomicAdd, ~114 KB of dynamic
+// shared memory. TF32 tensor cores would round the operands to 10 mantissa
+// bits and break the fp32 card-vs-CPU checks; the configuration runs bf16,
+// so fp32 exists for those checks.
 #include "common.cuh"
 #include "dropout.cuh"
+#include "so_wgmma.cuh"
 
 namespace {
 
@@ -256,8 +271,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
 }  // namespace
 
 // q/dout/a and cq/cdo (B, T, H*D), k/v/bc/c (B, S, H*D), lse/delta (B, H, T)
-// fp32, ck/cv (B, S, H*D) fp32 zero-filled by the caller; all contiguous.
-// Dropout arguments as flash_fwd's. Returns the CUDA error of the launch (0
+// fp32, ck/cv (B, S, H*D) fp32 zero-filled by the caller; all contiguous,
+// bf16 q/k/v/dout/a/bc/c and ck/cv 16-byte aligned (TMA). Dropout arguments
+// as flash_fwd's. Returns the CUDA error of the launch (0
 // on success).
 extern "C" int flash_so(const void* q, const void* k, const void* v, const void* dout,
                         const void* a, const void* bc, const void* c, const void* lse,
@@ -272,8 +288,12 @@ extern "C" int flash_so(const void* q, const void* k, const void* v, const void*
                              S, H, drop, st)
   if (dtype == ipt::kFloat32 && D == 32) IPT_SO_LAUNCH(float, 32);
   if (dtype == ipt::kFloat32 && D == 64) IPT_SO_LAUNCH(float, 64);
-  if (dtype == ipt::kBFloat16 && D == 32) IPT_SO_LAUNCH(__nv_bfloat16, 32);
-  if (dtype == ipt::kBFloat16 && D == 64) IPT_SO_LAUNCH(__nv_bfloat16, 64);
 #undef IPT_SO_LAUNCH
+  if (dtype == ipt::kBFloat16 && D == 32)
+    return (int)ipt::launch_q_resident<32, true>(q, k, v, dout, a, bc, c, lse, delta, cq, cdo,
+                                                 ck, cv, B, T, S, H, drop, st);
+  if (dtype == ipt::kBFloat16 && D == 64)
+    return (int)ipt::launch_q_resident<64, true>(q, k, v, dout, a, bc, c, lse, delta, cq, cdo,
+                                                 ck, cv, B, T, S, H, drop, st);
   return (int)cudaErrorInvalidValue;
 }

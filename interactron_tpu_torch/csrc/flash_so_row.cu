@@ -19,22 +19,38 @@
 //
 // Bound on the H100: nine (T x S x D) products a head (18*B*H*T*S*D FLOPs),
 // so at the fusion shape (B=1, H=8, T=S=2060, D=64) about 39 GFLOP, bound by
-// operations (~40 us at 989 TFLOP/s bf16).
+// operations (0.0395 ms at 989 TFLOP/s bf16). The two-sweep design below
+// does fourteen: sweep 1 forms the five score products (S, dP, A K^T,
+// Q Bc^T, dO C^T) for the row sums, sweep 2 forms them again beside the
+// four output products, so its own floor at F is about 0.062 ms. The
+// recompute keeps every (T x S) tile on chip and, with flash_so.cu's
+// row-sum identity, needs no third sweep; the design's answer to its cost
+// is to run all fourteen on the tensor cores.
 //
-// Design: flash_so.cu's two sweeps without its c_k/c_v atomics. One CTA owns
-// (b, h, 64 query rows), keeps its q, dO and A rows in shared memory and
-// sweeps the K/V/Bc/C tiles (32 keys each) twice: sweep 1 forms
+// flash_so.cu's two sweeps without its c_k/c_v: one CTA owns (b, h, 64
+// query rows) and sweeps the K/V/Bc/C tiles twice: sweep 1 forms
 // a1 = rowsum(P*g_dS), a2 = rowsum(P*(g_P1 + g_dS*e)) and a3 = rowsum(P*dp),
 // so g_D = -a1 and s_gp = a2 + g_D*a3; sweep 2 recomputes the tile and keeps
 // c_q and c_dO in fp32 registers. Every output element is written once by
-// the CTA that owns its row, so two runs give bitwise-equal results. Four
-// threads share a query row (8 of the tile's 32 keys each; row sums by two
-// warp shuffles). The ragged edge is masked by index (P = 0 outside T x S;
-// rows >= T are not written). Scalar fp32 FMA through ~114 KB of dynamic
-// shared memory, one CTA per SM; tensor cores come later. At the last
-// fusion block (T=255) the grid is only 4 q-tiles x 8 heads.
+// the CTA that owns its row, so two runs give bitwise-equal results. The
+// ragged edge is masked by index (P = 0 outside T x S; rows >= T are not
+// written).
+//
+// bf16 (the configuration's dtype): tensor cores, `so_row_wgmma_kernel`,
+// the Q-resident warpgroup of csrc/so_wgmma.cuh with WithKV = false (one
+// warpgroup a CTA; Q, dO, A once by TMA; K/V/Bc/C 64-key tiles through a
+// 2-stage TMA ring; sweep 2 in 32-key halves; no atomics). 89 KB of shared
+// memory at D=64, two CTAs an SM. At the last fusion block (T=255) the grid
+// is only 4 q-tiles x 8 heads.
+//
+// fp32: the scalar-FMA kernel below (`sov_row_kernel`), unchanged from the
+// first port: four threads share a query row (8 of a tile's 32 keys each;
+// row sums by two warp shuffles), ~114 KB of dynamic shared memory. TF32
+// tensor cores would round the operands to 10 mantissa bits and break the
+// fp32 card-vs-CPU checks.
 #include "common.cuh"
 #include "dropout.cuh"
+#include "so_wgmma.cuh"
 
 namespace {
 
@@ -237,8 +253,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
 }  // namespace
 
 // q/dout/a and cq/cdo (B, T, H*D), k/v/bc/c (B, S, H*D), lse/delta and the
-// outputs gd/sgp (B, H, T) fp32; all contiguous. Dropout arguments as
-// flash_fwd's. Returns the CUDA error of the launch (0 on success).
+// outputs gd/sgp (B, H, T) fp32; all contiguous, bf16 q/k/v/dout/a/bc/c
+// 16-byte aligned (TMA). Dropout arguments as flash_fwd's. Returns the CUDA error of the launch (0 on success).
 extern "C" int flash_so_row(const void* q, const void* k, const void* v, const void* dout,
                             const void* a, const void* bc, const void* c, const void* lse,
                             const void* delta, void* cq, void* cdo, void* gd, void* sgp, int B,
@@ -252,8 +268,12 @@ extern "C" int flash_so_row(const void* q, const void* k, const void* v, const v
                              S, H, drop, st)
   if (dtype == ipt::kFloat32 && D == 32) IPT_SO_ROW_LAUNCH(float, 32);
   if (dtype == ipt::kFloat32 && D == 64) IPT_SO_ROW_LAUNCH(float, 64);
-  if (dtype == ipt::kBFloat16 && D == 32) IPT_SO_ROW_LAUNCH(__nv_bfloat16, 32);
-  if (dtype == ipt::kBFloat16 && D == 64) IPT_SO_ROW_LAUNCH(__nv_bfloat16, 64);
 #undef IPT_SO_ROW_LAUNCH
+  if (dtype == ipt::kBFloat16 && D == 32)
+    return (int)ipt::launch_q_resident<32, false>(q, k, v, dout, a, bc, c, lse, delta, cq, cdo,
+                                                  gd, sgp, B, T, S, H, drop, st);
+  if (dtype == ipt::kBFloat16 && D == 64)
+    return (int)ipt::launch_q_resident<64, false>(q, k, v, dout, a, bc, c, lse, delta, cq, cdo,
+                                                  gd, sgp, B, T, S, H, drop, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -483,6 +483,12 @@ def flash_grads(q, k, v, o, lse, do, num_heads, rate=0.0, seed=0):
     return (_dq_launch(*ops, num_heads, rate, seed), *_dkv_launch(*ops, num_heads, rate, seed))
 
 
+def _so_operands(q, k, v, do, a, bc, c, lse, delta):
+    """The CUDA operands of `flash_so` and `flash_so_row`: the seven packed
+    tensors aligned for the bf16 kernels' TMA maps, L and D contiguous."""
+    return (*(_aligned(x) for x in (q, k, v, do, a, bc, c)), lse.contiguous(), delta.contiguous())
+
+
 def flash_so(q, k, v, do, a, bc, c, lse, delta, num_heads, rate=0.0, seed=0):
     """(c_q, c_k, c_v, c_dO): the VJP of the attention backward for the
     cotangents (A, Bc, C) of (dq, dk, dv); L and D = rowsum(dO * O) are
@@ -492,8 +498,7 @@ def flash_so(q, k, v, do, a, bc, c, lse, delta, num_heads, rate=0.0, seed=0):
     _check_rows(delta, q, num_heads, "D")
     if q.device.type == "cpu":
         return flash_so_plain(q, k, v, do, a, bc, c, lse, delta, num_heads, rate, seed)
-    q, k, v, do, a, bc, c, lse, delta = (x.contiguous()
-                                         for x in (q, k, v, do, a, bc, c, lse, delta))
+    q, k, v, do, a, bc, c, lse, delta = _so_operands(q, k, v, do, a, bc, c, lse, delta)
     b, t, dim = q.shape
     cq = torch.empty_like(q)
     cdo = torch.empty_like(q)
@@ -516,8 +521,7 @@ def flash_so_row(q, k, v, do, a, bc, c, lse, delta, num_heads, rate=0.0, seed=0)
     _check_rows(delta, q, num_heads, "D")
     if q.device.type == "cpu":
         return flash_so_row_plain(q, k, v, do, a, bc, c, lse, delta, num_heads, rate, seed)
-    q, k, v, do, a, bc, c, lse, delta = (x.contiguous()
-                                         for x in (q, k, v, do, a, bc, c, lse, delta))
+    q, k, v, do, a, bc, c, lse, delta = _so_operands(q, k, v, do, a, bc, c, lse, delta)
     b, t, dim = q.shape
     cq = torch.empty_like(q)
     cdo = torch.empty_like(q)

@@ -7,7 +7,8 @@ without the suite's conftest:
 
 Shapes are the served and train paths' E (DETR encoder), F (fusion) and L
 (last fusion block), and ragged shapes that end inside the wgmma kernels'
-64-row tiles (flash_fwd, flash_bwd, flash_dq, flash_dkv). Tolerances: bf16
+64-row tiles (flash_fwd, flash_bwd, flash_dq, flash_dkv, flash_so,
+flash_so_row). Tolerances: bf16
 kernels against the plain version in fp32 on the same bf16 inputs,
 2e-2 x max|ref| (outputs, P, dS and the second-order products rounded to
 bf16); fp32, 1e-4 x max|ref| (summation order and the merged kernels'
@@ -135,6 +136,47 @@ def test_split_kernels_are_bitwise_reproducible():
 
     for x, y in zip(run(), run()):
         assert torch.equal(x, y)
+
+
+def so_cancel_floors(f32, h, rate):
+    """With one key (S = 1) the softmax has no gradient: g_S, dS and g_dp
+    cancel to zero (g_P against s_gp, dP against delta, g_dS against g_D),
+    so c_q, c_k and c_v are rounding noise on both sides. Their floors are
+    the sizes of the terms that cancel, through each output's products."""
+    qh, kh, vh, doh, ah, bh, ch = (tfa._heads(x, h) for x in f32)
+    scale, inv = qh.shape[-1] ** -0.5, 1.0 / (1.0 - rate)
+    mx = lambda x: x.abs().max().item()
+    dp = inv * mx(doh @ vh.transpose(-1, -2))
+    gds = scale * mx(ah @ kh.transpose(-1, -2) + qh @ bh.transpose(-1, -2))
+    gp = inv * mx(doh @ ch.transpose(-1, -2)) + gds * dp
+    return {"c_q": scale * (gp * mx(kh) + dp * mx(bh)),
+            "c_k": scale * (gp * mx(qh) + dp * mx(ah)), "c_v": inv * gds * mx(doh)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,t,s,hd", RAGGED)
+def test_so_kernels_match_plain_at_ragged_shapes_on_cuda(b, t, s, hd, dtype, rate):
+    """flash_so and flash_so_row against their plain versions where T and S
+    end inside the 64-row tiles, B > 1 where a tile's tail must not read the
+    next batch element; at S = 1, c_q, c_k and c_v against
+    `so_cancel_floors`."""
+    _cuda()
+    (q, k, v, do, a, bc, c), _, lse, delta, args = _split_inputs(b, t, s, hd, dtype, rate)
+    rel = 2e-2 if dtype == "bfloat16" else 1e-4
+    f32 = [x.float() for x in (q, k, v, do, a, bc, c)]
+    so_ref = tfa.flash_so_plain(*f32, lse, delta, *args)
+    row_ref = tfa.flash_so_row_plain(*f32, lse, delta, *args)
+    tfa.reset_launches()
+    so = tfa.flash_so(q, k, v, do, a, bc, c, lse, delta, *args)
+    row = tfa.flash_so_row(q, k, v, do, a, bc, c, lse, delta, *args)
+    assert tfa.launches["flash_so"] == tfa.launches["flash_so_row"] == 1
+    floors = so_cancel_floors(f32, args[0], args[1]) if s == 1 else {}
+    for name, g, r in zip(("c_q", "c_k", "c_v", "c_dO", "c_q", "c_dO", "g_D", "s_gp"),
+                          (*so, *row), (*so_ref, *row_ref)):
+        tol = rel * max(r.abs().max().item(), floors.get(name, 0.0))
+        assert (g.float() - r).abs().max().item() <= tol, name
 
 
 @pytest.mark.cuda
