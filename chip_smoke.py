@@ -7,17 +7,22 @@ check it end to end.
 Phases, each of which fails the run (non-zero exit, no "ok" line):
   1. device line (nvidia-smi name and power limit); TF32 off for fp32 work;
   2. build every CUDA kernel of the paths from interactron_tpu_torch/csrc/,
-     one nvcc per library, all at once, with each library's build time;
+     one nvcc per library, all at once, with each library's build time and
+     ptxas registers; what the kernels compiled to (cuobjdump -sass: the
+     split formulation's four bf16 kernels, flash_dq, flash_dkv,
+     flash_so_row and flash_so_col, on HGMMA and UTMALDG with no RED, ATOM
+     or UTMAREDG; the mask kernel's 16-byte stores, no call);
   3. each kernel against its plain PyTorch version at the paths' shapes, in
      fp32 and bf16, at dropout rate 0 and 0.1 (the mask kernel bit for bit),
      with its device time beside the plain version's, one PyTorch library
      call's where one computes the same function
      (F.scaled_dot_product_attention, a yardstick only) and the bound (see
-     `bound_ms`), and at the fusion shape the host time per call of the six
-     kernels on wgmma and TMA (flash_fwd, flash_bwd, flash_dq, flash_dkv,
-     flash_so, flash_so_row); the split formulation's kernels also against
-     the merged ones, and twice with equal outputs; (b) those six kernels at
-     ragged shapes that end inside their 64-row tiles;
+     `bound_ms`), and at the fusion shape the host time per call of the
+     redesigned kernels (the seven on wgmma and TMA: flash_fwd, flash_bwd,
+     flash_dq, flash_dkv, flash_so, flash_so_row, flash_so_col; and the
+     mask); the split formulation's kernels also against the merged ones,
+     and twice with equal outputs; (b) those seven kernels at ragged shapes
+     that end inside their 64-row tiles;
   4. full-width fp32 `predict` of configs/interactron.yaml (seed 0): the card
      against the CPU, which runs the plain versions;
   5. the served path in bf16: 4 episodes of next_action at s=1..4 and then
@@ -28,7 +33,9 @@ Phases, each of which fails the run (non-zero exit, no "ok" line):
      (`grads_and_metrics`, dropout on): the card against the CPU;
   8. bf16 training: 3 optimizer steps of 4 episodes (the config's batch of
      16 cut to 4 for time), dropout at the config's rates, with the launch
-     counters checked against the counts the train path must make;
+     counters checked against the counts the train path must make; the
+     regions its mask launches request, with their counts, and the mask
+     kernel timed at the largest module-dropout region among them;
   9. device time by kernel over one bf16 train step (torch.profiler);
  10. the split formulation (FLASH_BWD=split SO_MERGED=0): fp32 split vs
      merged on the card (inner gradient, second-order probe, one train
@@ -42,6 +49,8 @@ Prints the kernels' JSON line, then {"ok": true, "device": {...}} last.
 import contextlib
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -52,11 +61,17 @@ import torch.nn.functional as F
 
 PEAK_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 rate
-# 32-bit integer instructions/s of the CUDA cores: 132 SMs x 64 INT32 lanes
-# x 1.98 GHz (half the FP32 lanes behind the 67 TFLOP/s fp32 peak, one op
-# a lane per clock instead of an FMA's two)
-PEAK_INT_OPS = 16.7e12
-HASH_OPS = 12  # integer ops of one keep bit (csrc/dropout.cuh: mul, fmix32, compare)
+# 32-bit integer instructions/s of the CUDA cores: 132 SMs x 128 lanes x
+# 1.98 GHz. An SM issues one warp instruction a clock on each of its four
+# schedulers; the INT32 pipe (64 lanes an SM: xor, shift, add, compare)
+# and the FMA pipe (multiplies, and adds, left shifts, high halves and
+# carries as IMAD) run side by side at that rate together.
+PEAK_INT_OPS = 33.4e12
+# integer ops of one keep bit: the column's multiple (one add where the row
+# part is hoisted), fmix32's two multiplies and three xor-shifts (the first
+# xor three-way, with the row part), the compare, the bit's place in its
+# word (csrc/dropout.cuh, csrc/dropout_mask.cu)
+HASH_OPS = 11
 RATE = 0.1  # the config's attention and residual dropout
 SEED = 4321
 # (name, B, T, S, H, D) of every attention the kernels serve on the path
@@ -73,7 +88,7 @@ RAGGED = [
     ("ragged_s255", 1, 2060, 255, 8, 64),
 ]
 # the kernels whose bf16 instantiations run on wgmma and TMA
-REDESIGNED = ("fwd", "bwd", "dq", "dkv", "so", "so_row")
+REDESIGNED = ("fwd", "bwd", "dq", "dkv", "so", "so_row", "so_col")
 # max abs error allowed, as a multiple of the reference's max abs value
 TOL = {
     torch.float32: (1e-4, "fp32 in and out: summation order, exp2f of pre-scaled logits, "
@@ -174,6 +189,38 @@ def mask_bound(n):
     """Least time of the mask kernel: one byte written per element, and the
     hash's integer ops."""
     return bound_ms(0.0, n, HASH_OPS * n)
+
+
+# what the kernels must and must not compile to: (library, kernel symbol,
+# SASS patterns that must appear, patterns that must not). The split
+# formulation's four bf16 kernels write every output once, by the CTA that
+# owns it, so two runs are bitwise equal: tensor cores and TMA loads, no
+# atomic, reduction or TMA reduce-add.
+_SPLIT = ((r"\bHGMMA\.", r"\bUTMALDG\b"), (r"\bRED\.", r"\bATOM", r"\bUTMAREDG\b"))
+SASS_RULES = (
+    ("flash_dq", "dq_wgmma_kernel", *_SPLIT),
+    ("flash_dkv", "dkv_wgmma_kernel", *_SPLIT),
+    ("flash_so_row", "so_row_wgmma_kernel", *_SPLIT),
+    ("flash_so_col", "so_col_wgmma_kernel", *_SPLIT),
+    ("dropout_mask", "mask_vec16_kernel", (r"\bSTG\.E[.\w]*\.128\b",), (r"\bCALL\b",)),
+)
+
+
+def sass_check(cuda_build):
+    """Phase 2b, the standing guard of the split formulation's bitwise
+    reproducibility: count SASS_RULES' patterns in each kernel's SASS
+    (cuobjdump -sass of its library). Fails where a required pattern is
+    missing or a forbidden one is there: an atomic or reduce in a split
+    kernel, a subroutine call (a 64-bit division) in the mask kernel."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for lib, kernel, want, never in SASS_RULES:
+        sass = subprocess.run([tool, "-sass", str(cuda_build.library_path(lib))], check=True,
+                              capture_output=True, text=True, timeout=300).stdout
+        body = "".join(f for f in sass.split("Function : ")[1:] if kernel in f.split("\n", 1)[0])
+        counts = {p: len(re.findall(p, body)) for p in want + never}
+        log(f"    {lib} SASS of {kernel}: " + ", ".join(f"{p} {n}" for p, n in counts.items()))
+        if not body or not all(counts[p] for p in want) or any(counts[p] for p in never):
+            raise AssertionError(f"{lib}: the SASS of {kernel} breaks its rules: {counts}")
 
 
 def _randn(gen, b, h, d, dtype, lengths):
@@ -328,6 +375,10 @@ def check_kernels(fa):
                  "mask_plain_ms": cuda_ms(
                      lambda: fa.dropout_mask_plain(SEED, RATE, region, device="cuda")),
                  "mask_library_ms": None, "mask_bound_ms": mb, "mask_bound_by": mby}
+        if name == "fusion":
+            entry["mask_host_ms"] = host_ms(lambda: fa.dropout_mask(SEED, RATE, region, "cuda"))
+            log(f"  {name:12s} dropout_mask wrapper: host {entry['mask_host_ms']:.4f} ms per "
+                f"call, device {entry['mask_ms']:.4f} ms per call")
         log(f"  {name:12s} mask {region}: bit-exact {same}, keep fraction {keep:.6f} "
             f"(1 - rate = {1 - RATE:g}, sigma {sigma:.1e}); ms {entry['mask_ms']:.4f} plain "
             f"{entry['mask_plain_ms']:.4f} bound {mb:.4f} ({mby})")
@@ -353,10 +404,11 @@ def so_cancel_floors(fa, f32, h, rate):
 
 
 def check_ragged(fa):
-    """Phase 3b: flash_fwd, flash_bwd, flash_dq, flash_dkv, flash_so and
-    flash_so_row against their plain versions where T and S end inside the
-    kernels' 64-row tiles, with B > 1 (a tile's tail must not read the next
-    batch element), in fp32 and bf16 at rates 0 and 0.1. With one key
+    """Phase 3b: flash_fwd, flash_bwd, flash_dq, flash_dkv, flash_so,
+    flash_so_row and flash_so_col (on the plain row statistics) against
+    their plain versions where T and S end inside the kernels' 64-row
+    tiles, with B > 1 (a tile's tail must not read the next batch
+    element), in fp32 and bf16 at rates 0 and 0.1. With one key
     (S = 1) the softmax has no gradient: dq = dk = 0 exactly and both sides
     hold rounding noise of dS = P (dP - delta), where dP and delta cancel;
     there dq and dk (of both formulations) are held against the size of the
@@ -383,14 +435,19 @@ def check_ragged(fa):
                 so_in_ref = (*f32, lse_ref, fa._delta(f32[3], o_ref, h))
                 so_ref = fa.flash_so_plain(*so_in_ref, h, *drop)
                 row_ref = fa.flash_so_row_plain(*so_in_ref, h, *drop)
+                col_ref = fa.flash_so_col_plain(*so_in_ref, *row_ref[2:], h, *drop)
                 so_in = (q, k, v, do, a, bc, c, *so_in_ref[7:])
                 so = fa.flash_so(*so_in, h, *drop)
                 row = fa.flash_so_row(*so_in, h, *drop)
+                col = fa.flash_so_col(*so_in, *row_ref[2:], h, *drop)
                 floors = so_cancel_floors(fa, f32, h, rate) if s == 1 else {}
-                so_pairs = [(key, got, ref, floors.get(key.removesuffix("_row"), 0.0))
+                so_pairs = [(key, got, ref,
+                             floors.get(key.removesuffix("_row").removesuffix("_col"), 0.0))
                             for key, got, ref in zip(("c_q", "c_k", "c_v", "c_dO", "c_q_row",
-                                                      "c_dO_row", "g_D", "s_gp"),
-                                                     (*so, *row), (*so_ref, *row_ref))]
+                                                      "c_dO_row", "g_D", "s_gp", "c_k_col",
+                                                      "c_v_col"),
+                                                     (*so, *row, *col),
+                                                     (*so_ref, *row_ref, *col_ref))]
                 o, lse = fa.flash_fwd(q, k, v, h, *drop)
                 res = (o, lse, do, h, *drop)
                 dq, dk, dv = fa.flash_bwd(q, k, v, *res)
@@ -406,6 +463,48 @@ def check_ragged(fa):
                                     ("dk_split", dk_split, dk_split_ref, k_floor),
                                     ("dv_split", dv_split, dv_split_ref),
                                     *so_pairs), rel, why)
+
+
+@contextlib.contextmanager
+def mask_regions(fa, regions):
+    """Count the region (n_bh, n_rows, n_cols) of every mask launch into
+    `regions`; the wrapper counts its launches as before."""
+    launch = fa._launch
+
+    def counted(name, *args):
+        if name == "dropout_mask":
+            key = tuple(args[3:6])  # after the output pointer, seed and threshold
+            regions[key] = regions.get(key, 0) + 1
+        launch(name, *args)
+
+    fa._launch = counted
+    try:
+        yield
+    finally:
+        fa._launch = launch
+
+
+def module_mask(fa, regions, episodes):
+    """After phase 8: log the mask regions its episodes requested, and hold
+    and time the mask kernel at the largest module-dropout region among them
+    (n_bh = 1, models/layers.py's Dropout)."""
+    log(f"  mask regions of {episodes} train episodes ({sum(regions.values())} launches, "
+        f"{sum(regions.values()) / episodes:g} an episode): " + ", ".join(
+            f"{r} x{n}" for r, n in sorted(regions.items(), key=lambda rn: -np.prod(rn[0]))))
+    region = max((r for r in regions if r[0] == 1), key=lambda r: r[1] * r[2])
+    same = torch.equal(fa.dropout_mask(SEED, RATE, region, "cuda"),
+                       fa.dropout_mask_plain(SEED, RATE, region, device="cuda"))
+    mb, mby = mask_bound(region[1] * region[2])
+    entry = {"errs": {"mask": 0.0 if same else 1.0}, "region": region,
+             "mask_ms": cuda_ms(lambda: fa.dropout_mask(SEED, RATE, region, "cuda")),
+             "mask_plain_ms": cuda_ms(
+                 lambda: fa.dropout_mask_plain(SEED, RATE, region, device="cuda")),
+             "mask_library_ms": None, "mask_bound_ms": mb, "mask_bound_by": mby}
+    log(f"  largest module-dropout mask {region}: bit-exact {same}; ms {entry['mask_ms']:.4f} "
+        f"plain {entry['mask_plain_ms']:.4f} bound {mb:.4f} ({mby})")
+    if not same:
+        raise AssertionError(f"module dropout mask {region} not bit-exact")
+    return entry
 
 
 def synthetic_frames(seed, s=5, size=300):
@@ -591,8 +690,9 @@ def profile_run(fn):
               "flash_so (so_kernel, so_wgmma_kernel)": ("so_kernel", "so_wgmma_kernel"),
               "flash_so_row (sov_row_kernel, so_row_wgmma_kernel)": ("sov_row_kernel",
                                                                      "so_row_wgmma_kernel"),
-              "flash_so_col (sov_col_kernel)": ("sov_col_kernel",),
-              "dropout_mask (mask_kernel)": ("mask_kernel",),
+              "flash_so_col (sov_col_kernel, so_col_wgmma_kernel)": ("sov_col_kernel",
+                                                                     "so_col_wgmma_kernel"),
+              "dropout_mask (mask_vec16_kernel)": ("mask_vec16_kernel",),
               "convolution (cuDNN and friends)": ("conv", "cudnn", "implicit", "xmma", "sm90_",
                                                   "wgrad", "dgrad", "fprop")}
     for gname, keys in groups.items():
@@ -864,10 +964,11 @@ def main():
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"    {name}: {line.strip()}")
+    sass_check(cuda_build)
 
     log("[3] kernels vs plain versions")
     kres = check_kernels(fa)
-    log("  (b) the six wgmma kernels at ragged shapes")
+    log("  (b) the seven wgmma kernels at ragged shapes")
     check_ragged(fa)
 
     log("[4] full-width fp32 predict, card vs CPU")
@@ -895,11 +996,15 @@ def main():
     log(f"[8] bf16 training: 3 steps of 4 episodes (config BATCH_SIZE "
         f"{cfg_dict['TRAINER']['BATCH_SIZE']} cut to 4 for time), dropout on")
     model = InteractronTask(Config(cfg_dict), device="cuda").load_weights(weights)
-    train_counts, step_ms, trainer, batch = train_bf16(model, fa, C, Trainer)
+    regions = {}
+    with mask_regions(fa, regions):
+        train_counts, step_ms, trainer, batch = train_bf16(model, fa, C, Trainer)
     steady = step_ms[1:]
     log(f"  train: {4e3 / np.mean(steady):.3f} episodes/s, {np.mean(steady):.1f} ms per step of 4 "
         f"episodes (mean of {len(steady)} steps after the first, {step_ms[0]:.1f} ms); "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card: {card}")
+
+    kres[("module", "mask")] = module_mask(fa, regions, 3 * 4)
 
     log("[9] where the time goes: one bf16 train step of 4 episodes under torch.profiler")
     gen = torch.Generator().manual_seed(1)
@@ -962,6 +1067,11 @@ def main():
                                   "library_ms": r.get(f"{key}_library_ms"),
                                   "bound_ms": r[f"{key}_bound_ms"],
                                   "bound_by": r[f"{key}_bound_by"]})
+        if key == "mask":
+            r = kres[("module", "mask")]
+            per_shape.append({"shape": f"module dropout {r['region']}", "rate": RATE,
+                              **{k: r[f"mask_{k}"] for k in ("ms", "plain_ms", "library_ms",
+                                                              "bound_ms", "bound_by")}})
         by_path = {p: c[kname] for p, c in paths.items()}
         kernels.append({
             "name": kname, "route": "cuda", "source": f"interactron_tpu_torch/csrc/{kname}.cu",
@@ -975,6 +1085,9 @@ def main():
         })
         if key in REDESIGNED:
             kernels[-1].update(redesigned="bf16 on wgmma and TMA", host_ms=top[f"{key}_host_ms"])
+        elif key == "mask":
+            kernels[-1].update(redesigned="16-byte stores, no 64-bit index math",
+                               host_ms=top["mask_host_ms"])
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)  # nvidia-smi's name and power limit, on a line of its own
     print(json.dumps({"kernels": kernels}), flush=True)

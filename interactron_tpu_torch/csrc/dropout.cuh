@@ -22,13 +22,17 @@ constexpr uint32_t kMixBh = 0x9E3779B9u;
 constexpr uint32_t kMixRow = 0x85EBCA77u;
 constexpr uint32_t kMixCol = 0xC2B2AE3Du;
 
-__host__ __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
-  h ^= h >> 16;
+// murmur3's 32-bit finaliser after its first xor-shift
+__host__ __device__ __forceinline__ uint32_t fmix32_tail(uint32_t h) {
   h *= 0x85EBCA6Bu;
   h ^= h >> 13;
   h *= 0xC2B2AE35u;
   h ^= h >> 16;
   return h;
+}
+
+__host__ __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
+  return fmix32_tail(h ^ (h >> 16));
 }
 
 // the per-(head, row) part of the hash
@@ -38,6 +42,14 @@ __device__ __forceinline__ uint32_t row_key(uint32_t seed, uint32_t bh, uint32_t
 
 __device__ __forceinline__ uint32_t keep_bits(uint32_t rkey, uint32_t col) {
   return fmix32(rkey ^ (col * kMixCol));
+}
+
+// keep_bits with fmix32's first xor-shift split over the xor (a logical
+// shift distributes over it): keep_bits(rkey, col) ==
+// keep_bits_mixed(rkey ^ (rkey >> 16), col * kMixCol). A caller that holds
+// the row's part saves one op an element (the mask kernel).
+__device__ __forceinline__ uint32_t keep_bits_mixed(uint32_t rmix, uint32_t cm) {
+  return fmix32_tail(rmix ^ cm ^ (cm >> 16));
 }
 
 // The dropout arguments every attention kernel takes.

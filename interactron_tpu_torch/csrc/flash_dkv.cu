@@ -20,7 +20,8 @@
 // Bound on the H100: four (T x S x D) products a head, 8*B*H*T*S*D FLOPs,
 // so at the fusion shape (B=1, H=8, T=S=2060, D=64) about 17.4 GFLOP, bound
 // by operations (0.0176 ms at 989 TFLOP/s bf16; with dropout the keep-bit
-// hash, ~12 integer ops an element, bounds it at 0.0244 ms).
+// hash, 11 integer ops an element at 33.4 T ops/s, adds ~0.011 ms of its
+// own that can run beside the products).
 //
 // bf16 (the configuration's dtype): tensor cores, `dkv_wgmma_kernel` of
 // csrc/bwd_wgmma.cuh: flash_bwd.cu's K/V-resident warpgroup without the dQ

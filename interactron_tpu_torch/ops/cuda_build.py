@@ -84,6 +84,11 @@ def build_all(names=SOURCES):
     return reports
 
 
+def library_path(name):
+    """Where `lib<name>` is (or will be) built for the current sources."""
+    return _target(name)[1]
+
+
 def load(name):
     """The ctypes handle of `lib<name>`, building it first if needed."""
     lib = _loaded.get(name)

@@ -484,7 +484,7 @@ def flash_grads(q, k, v, o, lse, do, num_heads, rate=0.0, seed=0):
 
 
 def _so_operands(q, k, v, do, a, bc, c, lse, delta):
-    """The CUDA operands of `flash_so` and `flash_so_row`: the seven packed
+    """The CUDA operands of the second-order kernels: the seven packed
     tensors aligned for the bf16 kernels' TMA maps, L and D contiguous."""
     return (*(_aligned(x) for x in (q, k, v, do, a, bc, c)), lse.contiguous(), delta.contiguous())
 
@@ -544,8 +544,8 @@ def flash_so_col(q, k, v, do, a, bc, c, lse, delta, g_d, s_gp, num_heads, rate=0
     if q.device.type == "cpu":
         return flash_so_col_plain(q, k, v, do, a, bc, c, lse, delta, g_d, s_gp, num_heads,
                                   rate, seed)
-    q, k, v, do, a, bc, c, lse, delta, g_d, s_gp = (
-        x.contiguous() for x in (q, k, v, do, a, bc, c, lse, delta, g_d, s_gp))
+    q, k, v, do, a, bc, c, lse, delta = _so_operands(q, k, v, do, a, bc, c, lse, delta)
+    g_d, s_gp = g_d.contiguous(), s_gp.contiguous()
     b, t, dim = q.shape
     ck = torch.empty_like(k)
     cv = torch.empty_like(k)

@@ -8,7 +8,7 @@ without the suite's conftest:
 Shapes are the served and train paths' E (DETR encoder), F (fusion) and L
 (last fusion block), and ragged shapes that end inside the wgmma kernels'
 64-row tiles (flash_fwd, flash_bwd, flash_dq, flash_dkv, flash_so,
-flash_so_row). Tolerances: bf16
+flash_so_row, flash_so_col). Tolerances: bf16
 kernels against the plain version in fp32 on the same bf16 inputs,
 2e-2 x max|ref| (outputs, P, dS and the second-order products rounded to
 bf16); fp32, 1e-4 x max|ref| (summation order and the merged kernels'
@@ -16,7 +16,8 @@ unordered fp32 atomics). The split
 formulation's kernels (flash_dq, flash_dkv, flash_so_row, flash_so_col) are
 also held against the merged ones to the same tolerance, and must give
 bitwise-equal outputs run to run (they use no atomics). The mask kernel must
-be bit-exact.
+be bit-exact, at the paths' regions, at rows that start at every residue mod
+16, and on a sub-region against the slice of the full mask.
 """
 
 import pytest
@@ -158,23 +159,26 @@ def so_cancel_floors(f32, h, rate):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,t,s,hd", RAGGED)
 def test_so_kernels_match_plain_at_ragged_shapes_on_cuda(b, t, s, hd, dtype, rate):
-    """flash_so and flash_so_row against their plain versions where T and S
-    end inside the 64-row tiles, B > 1 where a tile's tail must not read the
-    next batch element; at S = 1, c_q, c_k and c_v against
-    `so_cancel_floors`."""
+    """flash_so, flash_so_row and flash_so_col (on the plain row statistics)
+    against their plain versions where T and S end inside the 64-row tiles,
+    B > 1 where a tile's tail must not read the next batch element; at
+    S = 1, c_q, c_k and c_v against `so_cancel_floors`."""
     _cuda()
     (q, k, v, do, a, bc, c), _, lse, delta, args = _split_inputs(b, t, s, hd, dtype, rate)
     rel = 2e-2 if dtype == "bfloat16" else 1e-4
     f32 = [x.float() for x in (q, k, v, do, a, bc, c)]
     so_ref = tfa.flash_so_plain(*f32, lse, delta, *args)
     row_ref = tfa.flash_so_row_plain(*f32, lse, delta, *args)
+    col_ref = tfa.flash_so_col_plain(*f32, lse, delta, *row_ref[2:], *args)
     tfa.reset_launches()
     so = tfa.flash_so(q, k, v, do, a, bc, c, lse, delta, *args)
     row = tfa.flash_so_row(q, k, v, do, a, bc, c, lse, delta, *args)
+    col = tfa.flash_so_col(q, k, v, do, a, bc, c, lse, delta, *row_ref[2:], *args)
     assert tfa.launches["flash_so"] == tfa.launches["flash_so_row"] == 1
+    assert tfa.launches["flash_so_col"] == 1
     floors = so_cancel_floors(f32, args[0], args[1]) if s == 1 else {}
-    for name, g, r in zip(("c_q", "c_k", "c_v", "c_dO", "c_q", "c_dO", "g_D", "s_gp"),
-                          (*so, *row), (*so_ref, *row_ref)):
+    for name, g, r in zip(("c_q", "c_k", "c_v", "c_dO", "c_q", "c_dO", "g_D", "s_gp", "c_k",
+                           "c_v"), (*so, *row, *col), (*so_ref, *row_ref, *col_ref)):
         tol = rel * max(r.abs().max().item(), floors.get(name, 0.0))
         assert (g.float() - r).abs().max().item() <= tol, name
 
@@ -182,8 +186,27 @@ def test_so_kernels_match_plain_at_ragged_shapes_on_cuda(b, t, s, hd, dtype, rat
 @pytest.mark.cuda
 @pytest.mark.parametrize("region,offsets", [((40, 361, 361), (0, 0, 0)),
                                             ((8, 2060, 2060), (0, 0, 0)),
-                                            ((3, 100, 77), (5, 40, 1983))])
+                                            ((3, 100, 77), (5, 40, 1983)),
+                                            # module dropout (models/layers.py)
+                                            ((1, 2060, 2048), (0, 0, 0)),
+                                            ((1, 1805, 256), (0, 0, 0)),
+                                            # rows starting at every residue mod 16
+                                            ((1, 48, 77), (0, 0, 0)),
+                                            # rows shorter than a 16-byte chunk
+                                            ((2, 5, 13), (1, 2, 3)),
+                                            ((1, 1, 1), (0, 0, 0))])
 def test_dropout_mask_kernel_is_bit_exact(region, offsets):
     _cuda()
     got = tfa.dropout_mask(4321, 0.1, region, "cuda", offsets)
     assert torch.equal(got, tfa.dropout_mask_plain(4321, 0.1, region, offsets, device="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("region,offsets", [((3, 100, 77), (5, 40, 1983)),
+                                            ((1, 37, 2048), (2, 1000, 0))])
+def test_dropout_mask_kernel_sub_region_is_a_slice_of_the_full_mask(region, offsets):
+    _cuda()
+    full = tfa.dropout_mask(4321, 0.1, (8, 2060, 2060), "cuda")
+    sub = tfa.dropout_mask(4321, 0.1, region, "cuda", offsets)
+    (n, r, c), (b0, r0, c0) = region, offsets
+    assert torch.equal(sub, full[b0:b0 + n, r0:r0 + r, c0:c0 + c])
