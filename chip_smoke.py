@@ -40,13 +40,25 @@ Phases, each of which fails the run (non-zero exit, no "ok" line):
  10. the split formulation (FLASH_BWD=split SO_MERGED=0): fp32 split vs
      merged on the card (inner gradient, second-order probe, one train
      episode); bf16 served episodes and train steps with their launch counts;
-     one served episode with FLASH_DKV=blocked; a profiled train step.
-Phases 1-9 run the default (merged) formulation: the switches are cleared
-first.
+     one served episode with FLASH_DKV=blocked; a profiled train step;
+ 11. train and evaluate from disk (`train_from_disk`): the port's synthetic
+     writer puts a JPEG tree in a temporary directory, and `Trainer.train`
+     runs over it at full width in bf16 (config cuts: batch 4, 2 epochs,
+     SAVE_WINDOW 1, the serial interactive evaluator): the epoch-0 test
+     epoch and closed-loop evaluation with AP, one train epoch whose steps
+     launch what phase 8's do, checkpoints; `detector.ckpt` must predict
+     `torch.equal` to the trained task, and a resume from `last_state.ckpt`
+     restores the train state exactly and runs one more epoch. It logs the
+     loader's, the train epoch's and the evaluation's episodes/s, the host
+     scoring time, and the checkpoints' size and save and load times.
+Phases 1-9 and 11 run the default (merged) formulation (but for phase 11's
+predict check, which runs split so that two runs are bitwise equal): the
+switches are cleared first.
 Prints the kernels' JSON line, then {"ok": true, "device": {...}} last.
 """
 
 import contextlib
+import copy
 import json
 import os
 import re
@@ -516,13 +528,14 @@ def synthetic_frames(seed, s=5, size=300):
     return (img - mean) / std
 
 
-def calibrated_weights(config_dict, Task, Config):
+def calibrated_weights(config_dict, Task, Config, frames=None):
     """Seed-0 random weights with every FrozenBatchNorm's statistics set to
-    those of its input on a seeded calibration batch, as pretrained
-    statistics would be. With identity statistics the random ResNet's
-    activations grow through the trunk until the DETR encoder's first fp32
-    logits, and the gradients through them, are too ill-conditioned for a
-    card vs CPU comparison to mean anything."""
+    those of its input on a calibration batch, `frames` (n, H, W, 3), by
+    default seeded noise frames, as pretrained statistics would be. With
+    identity statistics the random ResNet's activations grow through the
+    trunk until the DETR encoder's first fp32 logits, and the gradients
+    through them, are too ill-conditioned for a card vs CPU comparison to
+    mean anything."""
     from interactron_tpu_torch.models.layers import FrozenBatchNorm
 
     cfg = json.loads(json.dumps(config_dict))
@@ -536,8 +549,10 @@ def calibrated_weights(config_dict, Task, Config):
 
     hooks = [m.register_forward_pre_hook(set_stats) for m in model.modules()
              if isinstance(m, FrozenBatchNorm)]
+    if frames is None:
+        frames = synthetic_frames(0)[0]
     with torch.no_grad():
-        model.detector(model.frames({"frames": synthetic_frames(0)})[0])
+        model.detector(model.frames({"frames": frames[None]})[0])
     for h in hooks:
         h.remove()
     return model.state_dict()
@@ -773,7 +788,8 @@ def train_parity(config_dict, Task, Config, weights, C):
             if dev == "cuda":
                 torch.cuda.synchronize()
             log(f"  {dev} {key}: {time.perf_counter() - t0:.1f} s")
-            res[(dev, key)] = ({grp: {n: x.cpu() for n, x in d.items()} for grp, d in g.items()}, m)
+            res[(dev, key)] = ({grp: {n: x.cpu() for n, x in d.items()} for grp, d in g.items()},
+                               {k: float(v) for k, v in m.items()})
         del model
     (gc, mc), (gr, mr), (gm, mm) = res[("cuda", "base")], res[("cpu", "base")], res[("cpu", "moved")]
     norm = lambda d: sum(torch.sum(x.double() ** 2) for x in d.values()).sqrt().item()
@@ -835,7 +851,7 @@ def train_bf16(model, fa, C, Trainer, steps=3, episodes=4, split=False):
     for i, batch in enumerate(batches):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        metrics = trainer.train_step(batch, gen)
+        metrics = {k: float(v) for k, v in trainer.train_step(batch, gen).items()}
         torch.cuda.synchronize()
         step_ms.append(1e3 * (time.perf_counter() - t0))
         log(f"  step {i}: {step_ms[-1]:.1f} ms, total_loss {metrics['total_loss']:.4f}, "
@@ -896,9 +912,10 @@ def split_parity(config_dict, Task, Config, weights, C, fa):
         grads, m, _ = model.grads_and_metrics(b, torch.Generator().manual_seed(11),
                                               model.init_path_state(4), train=True,
                                               frame_index=[2])
-        return {"inner gradient g": cpu(g), "second-order probe (fusion)": probe,
-                "train step detector gradient": cpu(grads["detector"]),
-                "train step fusion gradient": cpu(grads["fusion"])}, m
+        return ({"inner gradient g": cpu(g), "second-order probe (fusion)": probe,
+                 "train step detector gradient": cpu(grads["detector"]),
+                 "train step fusion gradient": cpu(grads["fusion"])},
+                {k: float(v) for k, v in m.items()})
 
     fa_launches = {}
     res = {}
@@ -929,6 +946,233 @@ def split_parity(config_dict, Task, Config, weights, C, fa):
                 f"err={err:.3e} tol={tol:.3e} (max of 1e-4 x |merged| and 10 x its own change)")
             if not err <= tol:
                 raise AssertionError(f"split vs merged metric {k}: {err} > {tol}")
+
+
+DISK_EPISODES, DISK_STATES = 8, 6  # the synthetic JPEG tree of phase 11
+
+
+def _nested_equal(a, b):
+    """torch.equal over nested dicts and lists of tensors; == elsewhere."""
+    if torch.is_tensor(a):
+        return torch.is_tensor(b) and a.shape == b.shape and torch.equal(a, b.to(a.device))
+    if isinstance(a, dict):
+        return isinstance(b, dict) and set(a) == set(b) and all(_nested_equal(a[k], b[k])
+                                                                  for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_nested_equal(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def _train_state(trainer):
+    """(weights, Adam states, path state, tokens) of a trainer, copied."""
+    return copy.deepcopy((trainer.task.state_dict(),
+                          {g: o.state_dict() for g, o in trainer.opts.items()},
+                          trainer.path_state, trainer.tokens))
+
+
+@contextlib.contextmanager
+def instrument(obj, name, record):
+    """Wrap obj.name: after each call, record(args, seconds, launches) with
+    its wall time (between device synchronizes) and the kernel launches it
+    made. The wrapper is removed on exit."""
+    from interactron_tpu_torch.ops import flash_attention as fa
+
+    fn = getattr(obj, name)
+
+    def wrapped(*a, **kw):
+        torch.cuda.synchronize()
+        before = dict(fa.launches)
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        record(a, time.perf_counter() - t0,
+               {k: v - before.get(k, 0) for k, v in fa.launches.items()})
+        return out
+
+    setattr(obj, name, wrapped)
+    try:
+        yield
+    finally:
+        delattr(obj, name)
+
+
+def _finite_records(out_dir):
+    """The run's metrics.jsonl records; fails where a value is not finite."""
+    with open(os.path.join(out_dir, "logs", "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    bad = [(r["step"], k, v) for r in recs for k, v in r.items() if not np.isfinite(v)]
+    if bad:
+        raise AssertionError(f"non-finite logged metrics: {bad}")
+    return recs
+
+
+def train_from_disk(cfg_dict, fa, C, card):
+    """Phase 11: the user's path from disk at full width. The port's
+    synthetic writer puts a JPEG tree on disk; `build_model`,
+    `build_evaluator` and `build_trainer` run `Trainer.train`: the epoch-0
+    test epoch and closed-loop evaluation with AP, one train epoch through
+    the loader, a test epoch and evaluation, `last_state.ckpt` and
+    `detector.ckpt`. Then `detector.ckpt` in a fresh task must predict
+    `torch.equal` to the trained task, and a resume from `last_state.ckpt`
+    must restore the whole train state and run one more epoch. The weights
+    are seed 0's with FrozenBatchNorm statistics calibrated on the tree's
+    own frames: with phase 4's, calibrated on noise, the first train step on
+    these flat images overflows bf16 (the fast-weight detector pass's DETR
+    encoder attention gets inputs so large that its backward gives NaN, the
+    plain version's on the same inputs too). Returns the launch counts of
+    the first run."""
+    import tempfile
+
+    from interactron_tpu_torch.data.episode_dataset import EpisodeDataset, EpisodeLoader
+    from interactron_tpu_torch.data.synthetic import make_synthetic_dataset
+    from interactron_tpu_torch.tasks import InteractronTask
+    from interactron_tpu_torch.utils import checkpoint as ckpt
+    from interactron_tpu_torch.utils.config import (
+        Config,
+        build_evaluator,
+        build_model,
+        build_trainer,
+    )
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_disk_") as tmp:
+        t0 = time.perf_counter()
+        img_root, ann = make_synthetic_dataset(os.path.join(tmp, "tree"), DISK_EPISODES,
+                                               DISK_STATES, C.IMG_SIZE)
+        log(f"  synthetic tree: {DISK_EPISODES} episodes x {DISK_STATES} states of "
+            f"{C.IMG_SIZE} px JPEGs in {time.perf_counter() - t0:.1f} s; DATASET.TRAIN and "
+            f"DATASET.TEST both read it")
+        d = json.loads(json.dumps(cfg_dict))
+        d["DATASET"] = {split: dict(d["DATASET"][split], ANNOTATION_ROOT=ann, IMAGE_ROOT=img_root)
+                        for split in ("TRAIN", "TEST")}
+        cuts = {("TRAINER", "BATCH_SIZE"): 4, ("TRAINER", "MAX_EPOCHS"): 2,
+                ("TRAINER", "SAVE_WINDOW"): 1, ("EVALUATOR", "TYPE"): "interactive_evaluator",
+                ("EVALUATOR", "ROLLOUT_BATCH"): 1}
+        for (sec, key), v in cuts.items():
+            if d[sec].get(key) != v:
+                log(f"  cut: {sec}.{key} {d[sec].get(key, 'unset')} -> {v}")
+                d[sec][key] = v
+        d["TRAINER"]["OUTPUT_DIRECTORY"] = os.path.join(tmp, "train")
+        d["EVALUATOR"]["OUTPUT_DIRECTORY"] = os.path.join(tmp, "eval")
+        cfg = Config(d)
+        workers = int(d["TRAINER"]["NUM_WORKERS"])
+        calib = EpisodeDataset(img_root, ann, "test")
+        weights = calibrated_weights(cfg_dict, InteractronTask, Config, np.concatenate(
+            [calib.get_item(i)["frames"] for i in (0, 3)]))
+        log("  weights: seed 0, FrozenBatchNorm statistics calibrated on the 10 frames of "
+            "episodes 0 and 3 of the tree")
+
+        # the loader alone: train transform, the config's threads
+        ds = EpisodeDataset(img_root, ann, "train", train_aug=True)
+        t0 = time.perf_counter()
+        n = sum(len(b["episode_uid"]) for e in range(3)
+                for b in EpisodeLoader(ds, 4, shuffle=True, num_workers=workers, seed=e))
+        loader_eps = n / (time.perf_counter() - t0)
+        log(f"  loader alone: {loader_eps:.3f} episodes/s ({n} episodes, train transform, "
+            f"{workers} threads); card: {card}")
+
+        task = build_model(cfg, device="cuda").load_weights(weights)
+        evaluator = build_evaluator(task, cfg)
+        trainer = build_trainer(task, cfg, evaluator=evaluator)
+        steps, epochs, evals, scores = [], {"train": [], "test": []}, [], []
+        step_launches = {}
+
+        def on_step(args, secs, launched):
+            steps.append(secs)
+            for k, v in launched.items():
+                step_launches[k] = step_launches.get(k, 0) + v
+
+        with instrument(trainer, "train_step", on_step), \
+                instrument(trainer, "_run_epoch", lambda a, t, _: epochs[a[0]].append(t)), \
+                instrument(evaluator, "evaluate", lambda a, t, _: evals.append(t)), \
+                instrument(evaluator, "_score_episode", lambda a, t, _: scores.append(t)):
+            fa.reset_launches()
+            t0 = time.perf_counter()
+            trainer.train()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(fa.launches)
+        log(f"  Trainer.train, 2 epochs: {wall:.1f} s; launches {counts}")
+        recs = _finite_records(trainer.out_dir)
+        for r in recs:
+            log(f"  metrics.jsonl step {r['step']}: " + ", ".join(
+                f"{k} {v:.5g}" for k, v in r.items() if k not in ("step", "time")))
+        n_train = len(steps) * 4
+        want = {k: v * n_train for k, v in expected_train_launches(cfg.MODEL).items()}
+        log(f"  launches of the {len(steps)} train steps: {step_launches} (expected {want}: "
+            f"phase 8's count an episode x {n_train} episodes)")
+        if any(step_launches.get(k, 0) != want.get(k, 0) for k in {*step_launches, *want}):
+            raise AssertionError(f"train-loop launches {step_launches} != {want}")
+        (train_s,) = epochs["train"]
+        log(f"  train epoch from disk: {n_train / train_s:.3f} episodes/s ({n_train} episodes in "
+            f"{train_s:.2f} s); the step's share of the epoch's wall {sum(steps) / train_s:.3f} "
+            f"(steps {', '.join(f'{1e3 * s:.0f}' for s in steps)} ms); card: {card}")
+        log(f"  test epochs: {', '.join(f'{s:.2f}' for s in epochs['test'])} s for "
+            f"{DISK_EPISODES} episodes each")
+        n_eval = len(evaluator.dataset)
+        log(f"  evaluation (serial closed loop, AP): {n_eval / np.mean(evals):.3f} episodes/s "
+            f"(mean of {len(evals)} runs of {n_eval} episodes, "
+            f"{', '.join(f'{s:.2f}' for s in evals)} s); host scoring "
+            f"{1e3 * np.mean(scores):.2f} ms an episode (mean of {len(scores)}), "
+            f"{np.sum(scores) / np.sum(evals):.3f} of the evaluation; card: {card}")
+
+        # detector.ckpt in a fresh task: predict torch.equal to the trained task's
+        # (the split formulation and cuDNN's deterministic algorithms, so that two
+        # runs of one predict are bitwise equal)
+        fresh = build_model(cfg, device="cuda").init(3)
+        t0 = time.perf_counter()
+        names = ckpt.load_checkpoint(trainer.checkpoint_path, fresh)
+        load_s = time.perf_counter() - t0
+        if set(names) != set(fresh.state_dict()):
+            raise AssertionError("detector.ckpt misses weights")
+        episode = evaluator.dataset.partial_sample(0, ["MoveAhead"] * (C.NUM_FRAMES - 1))
+        cudnn_det = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            with switches(**SPLIT):
+                preds = [m.predict(episode) for m in (task, task, fresh)]
+        finally:
+            torch.backends.cudnn.deterministic = cudnn_det
+        same = [all(torch.equal(p[k], preds[0][k]) for k in p) for p in preds[1:]]
+        log(f"  detector.ckpt ({os.path.getsize(trainer.checkpoint_path) / 1e6:.1f} MB, loaded "
+            f"in {load_s:.2f} s) in a fresh task: predict torch.equal to the trained task's: "
+            f"{same[1]} (the trained task twice: {same[0]})")
+        if not all(same):
+            raise AssertionError(f"predict after detector.ckpt not equal: {same}")
+        del fresh
+
+        # the whole train state: its size, a save and a load, and a resume
+        last = os.path.join(trainer.out_dir, "last_state.ckpt")
+        state = _train_state(trainer)
+        t0 = time.perf_counter()
+        ckpt.save_state(os.path.join(tmp, "again.ckpt"), task, trainer.opts, trainer.path_state,
+                        1, trainer.tokens)
+        save_s = time.perf_counter() - t0
+        d["TRAINER"]["OUTPUT_DIRECTORY"] = os.path.join(tmp, "resumed")
+        cfg = Config(d)
+        task2 = build_model(cfg, device="cuda").init(3)
+        trainer2 = build_trainer(task2, cfg, evaluator=build_evaluator(task2, cfg))
+        t0 = time.perf_counter()
+        path_state, epoch, tokens = ckpt.load_state(last, task2, trainer2.opts)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        log(f"  last_state.ckpt: {os.path.getsize(last) / 1e6:.1f} MB; save {save_s:.2f} s, "
+            f"load {load_s:.2f} s; card: {card}")
+        trainer2.path_state, trainer2.tokens = path_state, tokens
+        restored = [_nested_equal(a, b) for a, b in zip(state, _train_state(trainer2))]
+        log(f"  resume: weights, Adam states, path state, tokens restored exactly: {restored}; "
+            f"epoch {epoch}, tokens {tokens}")
+        if not all(restored) or epoch != 1:
+            raise AssertionError(f"resume state {restored}, epoch {epoch}")
+        del task, trainer, evaluator
+        t0 = time.perf_counter()
+        trainer2.train(max_epochs=3, resume_from=last)
+        recs = _finite_records(trainer2.out_dir)
+        if [r["step"] for r in recs] != [0, 1] or trainer2.tokens != tokens + n_train * 5:
+            raise AssertionError(f"resumed run: steps {[r['step'] for r in recs]}, tokens "
+                                 f"{trainer2.tokens}")
+        log(f"  resumed at epoch 2 and ran it in {time.perf_counter() - t0:.1f} s; tokens "
+            f"{tokens} -> {trainer2.tokens}")
+    return counts
 
 
 def main():
@@ -1035,9 +1279,17 @@ def main():
         gen = torch.Generator().manual_seed(1)
         profile_run(lambda: trainer.train_step(batch, gen))
     log(f"  phase 10 took {time.perf_counter() - t10:.1f} s")
+    del model, trainer
+
+    t11 = time.perf_counter()
+    log("[11] train and evaluate from disk: Trainer.train over a JPEG tree, the closed-loop "
+        "evaluation with AP, checkpoints and a resume")
+    disk_counts = train_from_disk(cfg_dict, fa, C, card)
+    log(f"  phase 11 took {time.perf_counter() - t11:.1f} s")
 
     paths = {"served": counts, "train": train_counts, "served_split": split_counts,
-             "train_split": split_train_counts, "served_split_dkv_blocked": blocked_counts}
+             "train_split": split_train_counts, "served_split_dkv_blocked": blocked_counts,
+             "train_from_disk": disk_counts}
     kernels = []
     at = "fusion B=1 T=S=2060 H=8 D=64 bf16"
     tpu = "interactron_tpu/ops/flash_attention.py"

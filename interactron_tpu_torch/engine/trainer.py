@@ -1,6 +1,6 @@
-"""The optimizer step of meta-training (counterpart of
-interactron_tpu/engine/trainer.py: `global_norm_clip`, the body of
-`Trainer.train_step`, `_lr_scale` and `_advance_tokens`).
+"""Meta-training (counterpart of interactron_tpu/engine/trainer.py): the
+optimizer step (`global_norm_clip`, `train_step`, `_lr_scale`,
+`_advance_tokens`) and the epoch loop over episodes on disk (`train`).
 
 Two Adams, detector at DETECTOR_LR and fusion ("supervisor") at
 SUPERVISOR_LR (1e-5 / 1e-4 whatever the config for interactron_random, as
@@ -8,13 +8,32 @@ the reference hardcodes), with optax's defaults as the JAX trainer builds
 them: betas (0.9, 0.999), eps 1e-8 (the config's BETA1/BETA2 are never
 read). One global-norm clip over all gradients jointly, then the
 supervisor's optional warmup + cosine LR scale keyed to seen frames.
-Datasets, epochs, checkpoints and evaluation are not ported yet: a step
-takes a batch of in-memory episodes.
+
+`train` runs epoch 0 as a test epoch and an evaluation, then per epoch a
+shuffled train epoch, a test epoch and an evaluation, logs the epoch means
+to `metrics.jsonl`, keeps the uniform weight average of the last
+SAVE_WINDOW epochs, writes `last_state.ckpt` (the whole train state, for
+`resume_from`) every epoch and `detector.ckpt` (the averaged weights) at
+the end. A batch's episodes run one at a time (TRAINER.INNER_BATCH is not
+read). The loop's random stream is its own CPU generator seeded 1234: it
+cannot match JAX's threefry keys.
 """
 
 import math
+import os
+import time
+from datetime import datetime
 
 import torch
+
+from interactron_tpu_torch.data.episode_dataset import EpisodeDataset, EpisodeLoader
+from interactron_tpu_torch.utils.checkpoint import (
+    RunningAverage,
+    load_state,
+    save_checkpoint,
+    save_state,
+)
+from interactron_tpu_torch.utils.logging import MetricLogger
 
 
 def global_norm_clip(grads, max_norm):
@@ -27,9 +46,16 @@ def global_norm_clip(grads, max_norm):
 
 
 class Trainer:
-    def __init__(self, task, config, path_rows=None):
+    """`task` trains in place: the loop starts from the weights it holds.
+    `evaluator` (engine/evaluator.py), when given, runs after every test
+    epoch. `path_rows` sizes the path state of `train_step` calls made
+    outside `train`, which sizes its own from the datasets."""
+
+    def __init__(self, task, config, evaluator=None, path_rows=None):
         t = config.TRAINER
         self.task = task
+        self.config = config
+        self.evaluator = evaluator
         self.type = t.TYPE
         if self.type not in ("interactron", "interactron_random"):
             raise NotImplementedError(f"trainer type {self.type!r} is not ported")
@@ -43,6 +69,11 @@ class Trainer:
         self.warmup_tokens = float(t.get("WARMUP_TOKENS", 0) or 0)
         self.final_tokens = float(t.get("FINAL_TOKENS", 0) or 0)
         self.tokens = 0
+        self.batch_size = int(t.BATCH_SIZE)
+        self.max_epochs = int(t.MAX_EPOCHS)
+        self.save_window = int(t.get("SAVE_WINDOW", 0) or 0)
+        self.num_workers = int(t.get("NUM_WORKERS", 2))
+        self.avg = RunningAverage()
         adam = lambda mod, lr: torch.optim.Adam(mod.parameters(), lr=lr, betas=(0.9, 0.999),
                                                 eps=1e-8)
         self.opts = {"detector": adam(task.detector, self.detector_lr),
@@ -84,3 +115,88 @@ class Trainer:
         metrics["grad_norm"] = float(self.apply_grads(grads, scale))
         self._advance_tokens(batch["frames"].shape[0], batch["frames"].shape[1])
         return metrics
+
+    # ------------------------------------------------------------- the loop
+
+    def _prepare_run(self):
+        """The run's output directory, logger and datasets, and a path state
+        with a row for every train and test episode uid."""
+        t = self.config.TRAINER
+        self.out_dir = os.path.join(t.OUTPUT_DIRECTORY,
+                                    datetime.now().strftime("%m-%d-%Y:%H:%M:%S"))
+        os.makedirs(self.out_dir, exist_ok=True)
+        self.logger = MetricLogger(os.path.join(self.out_dir, "logs"))
+        self.checkpoint_path = os.path.join(self.out_dir, "detector.ckpt")
+        train_ds, test_ds = self.config.DATASET.TRAIN, self.config.DATASET.TEST
+        size = dict(resolution=self.task.img_size, max_boxes=self.task.max_boxes)
+        self.train_dataset = EpisodeDataset(train_ds.IMAGE_ROOT, train_ds.ANNOTATION_ROOT,
+                                            train_ds.MODE, train_aug=True, **size)
+        self.test_dataset = EpisodeDataset(test_ds.IMAGE_ROOT, test_ds.ANNOTATION_ROOT,
+                                           test_ds.MODE, train_aug=False,
+                                           uid_offset=len(self.train_dataset), **size)
+        self.path_state = self.task.init_path_state(
+            len(self.train_dataset) + len(self.test_dataset) + 1)
+
+    def _run_epoch(self, split, gen, epoch):
+        """One epoch of `split`; logs the metrics' means over its batches
+        under "Train/" or "Test/" and returns the mean total loss. Train
+        epochs shuffle with seed `epoch` and drop a short tail; test epochs
+        keep it. The metrics are summed on the device and fetched once."""
+        is_train = split == "train"
+        loader = EpisodeLoader(self.train_dataset if is_train else self.test_dataset,
+                               self.batch_size, shuffle=is_train, num_workers=self.num_workers,
+                               seed=epoch, drop_last=is_train)
+        acc, nb = {}, 0
+        for batch in loader:
+            if is_train:
+                self.logger.add_value("Train/LR", self.supervisor_lr * self._lr_scale())
+                metrics = self.train_step(batch, gen)
+            else:
+                metrics, self.path_state = self.task.eval_metrics(batch, gen, self.path_state)
+            acc = {k: acc.get(k, 0.0) + v for k, v in metrics.items()}
+            nb += 1
+        means = {k: float(v) / nb for k, v in acc.items()}
+        for k, v in means.items():
+            self.logger.add_value(f"{'Train' if is_train else 'Test'}/{k}", v)
+        return means.get("total_loss", 0.0)
+
+    def _run_evaluation(self, gen, epoch):
+        """A test epoch, then the evaluator's (AP50, AP, TP, FP, FN)."""
+        self._run_epoch("test", gen, epoch)
+        if self.evaluator is not None:
+            results = self.evaluator.evaluate(save_results=False, trained=True)
+            for name, v in zip(("mAP_50", "mAP", "TP", "FP", "FN"), results):
+                self.logger.add_value(f"Test/{name}", v)
+
+    def train(self, max_epochs=None, resume_from=None):
+        """Run epochs 1 .. max_epochs-1 after the epoch-0 evaluation (or
+        continue after the epoch saved in `resume_from`, else
+        TRAINER.RESUME_FROM, when that file exists). Returns the task, which
+        holds the last epoch's weights; `detector.ckpt` holds the average."""
+        max_epochs = max_epochs if max_epochs is not None else self.max_epochs
+        self._prepare_run()
+        start_epoch = 1
+        resume_from = resume_from or self.config.TRAINER.get("RESUME_FROM")
+        if resume_from and os.path.exists(resume_from):
+            self.path_state, epoch, self.tokens = load_state(resume_from, self.task, self.opts)
+            start_epoch = epoch + 1
+            print(f"resumed from {resume_from} at epoch {start_epoch}")
+        gen = torch.Generator().manual_seed(1234)
+        try:
+            self._run_evaluation(gen, 0)
+            self.logger.log_values()
+            for epoch in range(start_epoch, max_epochs):
+                t0 = time.time()
+                train_loss = self._run_epoch("train", gen, epoch)
+                self._run_evaluation(gen, epoch)
+                self.logger.add_value("Train/epoch_seconds", time.time() - t0)
+                self.logger.log_values()
+                print(f"epoch {epoch}: train loss {train_loss:.5f} ({time.time() - t0:.1f}s)")
+                if self.save_window and max_epochs - epoch <= self.save_window:
+                    self.avg.add(dict(self.task.named_parameters()), 1.0 / self.save_window)
+                save_state(os.path.join(self.out_dir, "last_state.ckpt"), self.task, self.opts,
+                           self.path_state, epoch, self.tokens)
+            save_checkpoint(self.checkpoint_path, self.task, self.avg.value())
+        finally:
+            self.logger.close()
+        return self.task

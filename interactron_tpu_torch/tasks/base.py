@@ -54,6 +54,8 @@ class TaskModel(nn.Module):
         )
         self.fusion = build_fusion(config, self.dtype) if self.needs_fusion else None
         self.num_classes = m.NUM_CLASSES
+        self.img_size = int(m.get("TEST_RESOLUTION", C.IMG_SIZE))
+        self.max_boxes = min(C.MAX_BOXES, self.detector.num_queries)
         self.cost_class = float(m.get("SET_COST_CLASS", 1.0))
         self.cost_bbox = float(m.get("SET_COST_BBOX", 5.0))
         self.cost_giou = float(m.get("SET_COST_GIOU", 2.0))

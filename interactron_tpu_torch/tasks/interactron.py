@@ -220,7 +220,7 @@ class InteractronRandomTask(TaskModel):
             out["loss_supervisor_path"] = m["loss_path"] / b
             out["policy_reward"] = m["policy_reward"] / b
         out["total_loss"] = m["total_loss"] / b
-        return {k: float(v) for k, v in out.items()}
+        return out
 
     def grads_and_metrics(self, batch, gen, path_state=None, train=True, frame_index=None):
         """Gradients of the meta-train loss summed over the batch's episodes,
@@ -231,7 +231,9 @@ class InteractronRandomTask(TaskModel):
         (b,). `gen` is a CPU torch.Generator: it draws each episode's frame
         index (unless `frame_index`, one per episode, is given) and, with
         `train`, its dropout streams. Returns ({"detector": {name: grad},
-        "fusion": {name: grad}}, {metric: float}, path state)."""
+        "fusion": {name: grad}}, {metric: 0-d float64 tensor on the task's
+        device}, path state); the metrics stay on the device, so a loop can
+        sum them there and fetch them once."""
         return self._run(batch, gen, path_state, train, frame_index, with_grads=True)
 
     def eval_metrics(self, batch, gen, path_state=None, frame_index=None):

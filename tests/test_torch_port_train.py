@@ -187,4 +187,4 @@ def test_train_with_dropout_is_finite_and_repeatable():
     assert torch.equal(a, b) and runs[0][1] == runs[1][1]
     assert not torch.equal(a, c)
     for r in runs:
-        assert all(np.isfinite(v) for v in r[1].values())
+        assert all(torch.isfinite(v) for v in r[1].values())
