@@ -11,8 +11,9 @@ asked to and the file exists (JAX's `ensure_params`).
 The interactive evaluator rolls episodes out one at a time (JAX's
 `ROLLOUT_BATCH: 1`). JAX's lockstep rollout, which batches next_action and
 predict over episodes, is not ported: with ROLLOUT_BATCH > 1 (JAX's default
-is 10) and a policy, the evaluator raises NotImplementedError instead of
-running the serial loop.
+is 10) and a policy, `evaluate` raises NotImplementedError instead of
+running the serial loop (the evaluator itself builds, so that every
+configuration's components do).
 """
 
 import json
@@ -148,14 +149,15 @@ class InteractiveEvaluator(_EvaluatorBase):
     def __init__(self, task, config, load_checkpoint=False):
         super().__init__(task, config, load_checkpoint)
         self.has_policy = hasattr(task, "next_action")
-        rollout_batch = int(config.EVALUATOR.get("ROLLOUT_BATCH", 10))
-        if self.has_policy and max(1, min(rollout_batch, len(self.dataset))) > 1:
-            raise NotImplementedError(
-                f"EVALUATOR.ROLLOUT_BATCH {rollout_batch}: the lockstep rollout is not ported "
-                "(it waits for episode batching); set ROLLOUT_BATCH: 1 for the serial rollout")
+        self.rollout_batch = int(config.EVALUATOR.get("ROLLOUT_BATCH", 10))
 
     def evaluate(self, save_results=False, trained=False):
         """As RandomPolicyEvaluator.evaluate."""
+        if self.has_policy and max(1, min(self.rollout_batch, len(self.dataset))) > 1:
+            raise NotImplementedError(
+                f"EVALUATOR.ROLLOUT_BATCH {self.rollout_batch}: the lockstep rollout is not "
+                "ported (it waits for episode batching); set ROLLOUT_BATCH: 1 for the serial "
+                "rollout")
         self.ensure_params(trained)
         detections = []
         for _ in range(len(self.dataset)):

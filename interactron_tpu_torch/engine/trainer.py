@@ -1,13 +1,18 @@
-"""Meta-training (counterpart of interactron_tpu/engine/trainer.py): the
+"""Training (counterpart of interactron_tpu/engine/trainer.py): the
 optimizer step (`global_norm_clip`, `train_step`, `_lr_scale`,
 `_advance_tokens`) and the epoch loop over episodes on disk (`train`).
 
-Two Adams, detector at DETECTOR_LR and fusion ("supervisor") at
-SUPERVISOR_LR (1e-5 / 1e-4 whatever the config for interactron_random, as
-the reference hardcodes), with optax's defaults as the JAX trainer builds
-them: betas (0.9, 0.999), eps 1e-8 (the config's BETA1/BETA2 are never
-read). One global-norm clip over all gradients jointly, then the
-supervisor's optional warmup + cosine LR scale keyed to seen frames.
+By TRAINER.TYPE, with optax's defaults as the JAX trainer builds its Adams:
+betas (0.9, 0.999), eps 1e-8 (the config's BETA1/BETA2 are never read):
+  * interactron, interactron_random: two Adams, detector at DETECTOR_LR and
+    fusion ("supervisor") at SUPERVISOR_LR (1e-5 / 1e-4 whatever the
+    config for interactron_random, as the reference hardcodes); the LR
+    scale below applies to the supervisor, and tokens count frames;
+  * direct_supervision: one Adam, "all", over the detector and the fusion
+    (where the task has one) at LEARNING_RATE (else LR, else 1e-4); the LR
+    scale applies to it, and tokens count episodes.
+One global-norm clip over all gradients jointly, then the optional warmup
++ cosine LR scale keyed to seen tokens.
 
 `train` runs epoch 0 as a test epoch and an evaluation, then per epoch a
 shuffled train epoch, a test epoch and an evaluation, logs the epoch means
@@ -57,13 +62,15 @@ class Trainer:
         self.config = config
         self.evaluator = evaluator
         self.type = t.TYPE
-        if self.type not in ("interactron", "interactron_random"):
-            raise NotImplementedError(f"trainer type {self.type!r} is not ported")
+        if self.type not in ("interactron", "interactron_random", "direct_supervision"):
+            raise ValueError(f"unknown trainer type {self.type!r}")
         if self.type == "interactron_random":
             self.detector_lr, self.supervisor_lr = 1e-5, 1e-4
         else:
             self.detector_lr = float(t.get("DETECTOR_LR", 1e-5))
             self.supervisor_lr = float(t.get("SUPERVISOR_LR", 1e-4))
+        self.single_optimizer = self.type == "direct_supervision"
+        self.learning_rate = float(t.get("LEARNING_RATE", t.get("LR", 1e-4)))
         self.grad_clip = float(t.get("GRAD_NORM_CLIP", 1.0))
         self.lr_decay = bool(t.get("LR_DECAY", False))
         self.warmup_tokens = float(t.get("WARMUP_TOKENS", 0) or 0)
@@ -74,14 +81,25 @@ class Trainer:
         self.save_window = int(t.get("SAVE_WINDOW", 0) or 0)
         self.num_workers = int(t.get("NUM_WORKERS", 2))
         self.avg = RunningAverage()
-        adam = lambda mod, lr: torch.optim.Adam(mod.parameters(), lr=lr, betas=(0.9, 0.999),
-                                                eps=1e-8)
-        self.opts = {"detector": adam(task.detector, self.detector_lr),
-                     "fusion": adam(task.fusion, self.supervisor_lr)}
+        adam = lambda mods, lr: torch.optim.Adam([p for m in mods for p in m.parameters()],
+                                                 lr=lr, betas=(0.9, 0.999), eps=1e-8)
+        groups = task.modules_by_group()
+        # the optimizer whose LR the scale drives and the loop logs, and the
+        # groups each optimizer steps
+        if self.single_optimizer:
+            self.opts = {"all": adam(groups.values(), self.learning_rate)}
+            self.scaled, self.base_lr = "all", self.learning_rate
+            self.opt_groups = {"all": list(groups)}
+        else:
+            self.opts = {"detector": adam([task.detector], self.detector_lr),
+                         "fusion": adam([task.fusion], self.supervisor_lr)}
+            self.scaled, self.base_lr = "fusion", self.supervisor_lr
+            self.opt_groups = {"detector": ["detector"], "fusion": ["fusion"]}
         self.path_state = task.init_path_state(path_rows or task.default_path_rows)
 
     def _lr_scale(self):
-        """Supervisor LR scale; the first step always runs at 1.0, as the
+        """Scale of the supervisor's LR (the single optimizer's under
+        direct supervision); the first step always runs at 1.0, as the
         reference re-sets the LR only after each step."""
         if not self.lr_decay or self.tokens == 0:
             return 1.0
@@ -92,18 +110,20 @@ class Trainer:
         return max(0.1, 0.5 * (1.0 + math.cos(math.pi * progress)))
 
     def _advance_tokens(self, rows, seq_len):
-        """The interactron trainers count frames."""
-        self.tokens += rows * seq_len
+        """The interactron trainers count frames, direct supervision episodes."""
+        self.tokens += rows if self.single_optimizer else rows * seq_len
 
-    def apply_grads(self, grads, sup_lr_scale=1.0):
-        """Clip jointly, then one Adam step per group. Returns the global norm."""
+    def apply_grads(self, grads, lr_scale=1.0):
+        """Clip jointly, then one step of each Adam. Returns the global norm."""
         grads, gnorm = global_norm_clip(grads, self.grad_clip)
-        self.opts["fusion"].param_groups[0]["lr"] = self.supervisor_lr * sup_lr_scale
-        for grp, mod in (("detector", self.task.detector), ("fusion", self.task.fusion)):
-            for name, p in mod.named_parameters():
-                p.grad = grads[grp][name]
-            self.opts[grp].step()
-            self.opts[grp].zero_grad(set_to_none=True)
+        self.opts[self.scaled].param_groups[0]["lr"] = self.base_lr * lr_scale
+        modules = self.task.modules_by_group()
+        for opt_name, opt in self.opts.items():
+            for grp in self.opt_groups[opt_name]:
+                for name, p in modules[grp].named_parameters():
+                    p.grad = grads[grp][name]
+            opt.step()
+            opt.zero_grad(set_to_none=True)
         return gnorm
 
     def train_step(self, batch, gen, frame_index=None):
@@ -149,7 +169,7 @@ class Trainer:
         acc, nb = {}, 0
         for batch in loader:
             if is_train:
-                self.logger.add_value("Train/LR", self.supervisor_lr * self._lr_scale())
+                self.logger.add_value("Train/LR", self.base_lr * self._lr_scale())
                 metrics = self.train_step(batch, gen)
             else:
                 metrics, self.path_state = self.task.eval_metrics(batch, gen, self.path_state)

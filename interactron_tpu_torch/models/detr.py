@@ -1,7 +1,8 @@
 """DETR detector (counterpart of interactron_tpu/models/detr.py):
-ResNet-50-DC5 -> 1x1 projection -> 6+6 post-norm transformer with 50 object
-queries -> class and box heads, plus the extended outputs the fusion
-transformer reads (`embedded_memory_features`, `box_features`).
+ResNet-50-DC5 (or ViT-B/16, models/vit.py) -> 1x1 projection -> 6+6
+post-norm transformer with 50 object queries -> class and box heads, plus
+the extended outputs the fusion transformer reads
+(`embedded_memory_features`, `box_features`).
 
 Frames are unpadded, so the sine positional table is a constant of the
 feature-map size and no key-padding mask exists.
@@ -20,6 +21,7 @@ from interactron_tpu_torch.models.layers import (
 )
 from interactron_tpu_torch.models.position_encoding import sine_position_embedding
 from interactron_tpu_torch.models.resnet import ResNet50DC5
+from interactron_tpu_torch.models.vit import ViT
 from interactron_tpu_torch.utils import constants as C
 
 
@@ -97,25 +99,35 @@ class DETR(nn.Module):
       cxcywh, embedded_memory_features (B, 361, d) encoder memory flattened
       row-major (y, x), box_features (B, Q, d) final decoder states.
 
-    stage="frozen_prefix" returns the frozen stem+layer1 features (NCHW; the
-    tiny backbone is fully trainable, so there the prefix is the NCHW
-    input). stage="from_prefix" takes such a prefix and resumes from layer2.
-    With a generator `gen` the transformer's dropout is on (train mode).
+    stage="frozen_prefix" returns the frozen stem+layer1 features (NCHW).
+    The tiny and ViT backbones are fully trainable, so there the prefix is
+    the input (NCHW for the tiny one, the NHWC images for the ViT).
+    stage="from_prefix" takes such a prefix and resumes after it.
+    With a generator `gen` the dropout of the backbone and the encoder is
+    on, and the decoder's is on with `decoder_gen`, which is `gen` unless
+    given (train mode; the multi-frame baseline drops in the decoder
+    alone). `image_size` sizes the ViT's position table.
     """
 
     def __init__(self, num_classes, num_queries=C.NUM_QUERIES, d_model=256, num_heads=8,
                  num_encoder_layers=6, num_decoder_layers=6, ff_dim=2048, dropout_rate=0.1,
-                 backbone="resnet50", dtype=torch.float32):
+                 backbone="resnet50", image_size=C.IMG_SIZE, dtype=torch.float32):
         super().__init__()
-        if backbone not in ("resnet50", "tiny"):
+        if backbone not in ("resnet50", "tiny", "vit_b16", "vit"):
             raise ValueError(f"backbone {backbone!r} is not ported")
         self.tiny = backbone == "tiny"
+        self.vit = backbone in ("vit_b16", "vit")
         self.dtype = dtype
         self.d_model = d_model
         self.num_queries = num_queries
         self.num_encoder_layers = num_encoder_layers
-        self.backbone = TinyBackbone(dtype) if self.tiny else ResNet50DC5(dtype)
-        feat_ch = TinyBackbone.out_channels if self.tiny else 2048
+        if self.vit:
+            self.backbone = ViT(grid=image_size // 16, dtype=dtype)
+            feat_ch = 768
+        elif self.tiny:
+            self.backbone, feat_ch = TinyBackbone(dtype), TinyBackbone.out_channels
+        else:
+            self.backbone, feat_ch = ResNet50DC5(dtype), 2048
         self.input_proj = Dense(feat_ch, d_model, dtype=dtype)
         for i in range(num_encoder_layers):
             self.add_module(f"encoder_layer{i}", EncoderLayer(d_model, num_heads, ff_dim,
@@ -130,21 +142,29 @@ class DETR(nn.Module):
         with torch.no_grad():
             nn.init.normal_(self.query_embed, 0.0, 1.0, generator=gen)
 
-    def forward(self, images, stage="all", gen=None):
+    def forward(self, images, stage="all", gen=None, decoder_gen=None):
         if stage not in ("all", "frozen_prefix", "from_prefix"):
             raise ValueError(f"unknown stage {stage!r}")
-        x = images if stage == "from_prefix" else images.permute(0, 3, 1, 2)
-        x = x.to(self.dtype)
-        if self.tiny:
+        if decoder_gen is None:
+            decoder_gen = gen
+        if self.vit:
             if stage == "frozen_prefix":
-                return x
-            feats = self.backbone(x)
+                return images
+            feats = self.backbone(images, gen)  # NHWC
         else:
-            if stage == "frozen_prefix":
-                return self.backbone(x, stage="prefix")
-            feats = self.backbone(x, stage="trunk" if stage == "from_prefix" else "all")
-        b, _, h, w = feats.shape
-        src = self.input_proj(feats.permute(0, 2, 3, 1)).reshape(b, h * w, self.d_model)
+            x = images if stage == "from_prefix" else images.permute(0, 3, 1, 2)
+            x = x.to(self.dtype)
+            if self.tiny:
+                if stage == "frozen_prefix":
+                    return x
+                feats = self.backbone(x)
+            else:
+                if stage == "frozen_prefix":
+                    return self.backbone(x, stage="prefix")
+                feats = self.backbone(x, stage="trunk" if stage == "from_prefix" else "all")
+            feats = feats.permute(0, 2, 3, 1)
+        b, h, w, _ = feats.shape
+        src = self.input_proj(feats).reshape(b, h * w, self.d_model)
         pos = torch.as_tensor(sine_position_embedding(h, w, self.d_model // 2),
                               dtype=self.dtype, device=src.device)[None]
 
@@ -153,7 +173,7 @@ class DETR(nn.Module):
             memory = getattr(self, f"encoder_layer{i}")(memory, pos, gen)
 
         query_pos = self.query_embed.to(self.dtype)[None].expand(b, -1, -1)
-        hs = self.decoder(torch.zeros_like(query_pos), memory, query_pos, pos, gen)
+        hs = self.decoder(torch.zeros_like(query_pos), memory, query_pos, pos, decoder_gen)
         logits = self.class_embed(hs)
         boxes = torch.sigmoid(self.bbox_embed(hs).float())
         return {

@@ -1,18 +1,25 @@
-"""FusionGPT supervisor (counterpart of the GPT variant in
-interactron_tpu/models/fusion.py): reads per-frame DETR features and
-predictions across an episode and emits refined boxes and logits, a learned
-loss token per prediction and action logits.
+"""Fusion ("supervisor") transformers (counterpart of
+interactron_tpu/models/fusion.py): read per-frame DETR features and
+predictions across an episode and emit refined boxes and logits, a learned
+loss token per prediction and action logits. Two variants:
 
-The token sequence is [s*361 img | s*50 pred | 5 action] (2060 at s=5) with
-full bidirectional attention and a zero-initialised learned position table.
+  * `FusionGPT` (`interactron`, `detr_multiframe`): self-attention over
+    [s*361 img | s*50 pred | 5 action] (2060 at s=5), full bidirectional
+    attention, a zero-initialised learned position table;
+  * `FusionXAttn` (`interactron_random`): 255 query tokens (250 pred + 5
+    action) attend through a DETR decoder stack over the 1805 image tokens
+    of a full episode, with fixed sincos memory positions and a
+    zero-initialised learned query embedding.
 """
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from interactron_tpu_torch.models.detr import TransformerDecoderStack
 from interactron_tpu_torch.models.layers import (
     MLP,
     Dense,
@@ -20,7 +27,33 @@ from interactron_tpu_torch.models.layers import (
     LayerNorm,
     MultiHeadAttention,
 )
+from interactron_tpu_torch.models.position_encoding import sincos_1d, sincos_2d
 from interactron_tpu_torch.utils import constants as C
+
+
+def _init_action_tokens(tokens, gen):
+    """torch kaiming_uniform_(a=sqrt(5)) on (1, 5, E): bound 1/sqrt(5*E)."""
+    bound = 1.0 / math.sqrt(tokens.shape[1] * tokens.shape[2])
+    nn.init.uniform_(tokens, -bound, bound, generator=gen)
+
+
+class _Embed(nn.Module):
+    """Image tokens from the encoder memory, prediction tokens from
+    cat(box_features, pred_logits, pred_boxes) (both variants'
+    `_embed_inputs`)."""
+
+    def __init__(self, num_classes, d_model, embed_dim, dtype):
+        super().__init__()
+        self.dtype = dtype
+        self.img_feature_embedding = Dense(d_model, embed_dim, dtype=dtype)
+        self.prediction_embedding = Dense(d_model + num_classes + 1 + 4, embed_dim, dtype=dtype)
+
+    def embed(self, x):
+        dt = self.dtype
+        img = self.img_feature_embedding(x["embedded_memory_features"])
+        preds = torch.cat([x["box_features"].to(dt), x["pred_logits"].to(dt),
+                           x["pred_boxes"].to(dt)], dim=-1)
+        return img, self.prediction_embedding(preds)
 
 
 class GPTBlock(nn.Module):
@@ -64,15 +97,12 @@ class DecodeHeads(nn.Module):
         }
 
 
-class FusionGPT(nn.Module):
+class FusionGPT(_Embed):
     def __init__(self, num_classes, d_model=256, embed_dim=512, output_size=512,
                  num_layers=4, num_heads=8, block_size=2060, embd_pdrop=0.1,
                  attn_pdrop=0.1, resid_pdrop=0.1, dtype=torch.float32):
-        super().__init__()
-        self.dtype = dtype
+        super().__init__(num_classes, d_model, embed_dim, dtype)
         self.num_layers = num_layers
-        self.img_feature_embedding = Dense(d_model, embed_dim, dtype=dtype)
-        self.prediction_embedding = Dense(d_model + num_classes + 1 + 4, embed_dim, dtype=dtype)
         self.action_tokens = nn.Parameter(torch.zeros(1, C.NUM_FRAMES, embed_dim))
         self.seq_pos_embed = nn.Parameter(torch.zeros(block_size, embed_dim))
         self.dropout = Dropout(embd_pdrop)
@@ -85,26 +115,15 @@ class FusionGPT(nn.Module):
         self.heads = DecodeHeads(num_classes, output_size, 256, dtype)
 
     def init_weights(self, gen):
-        # torch kaiming_uniform_(a=sqrt(5)) on (1, 5, E): bound 1/sqrt(5*E)
-        bound = 1.0 / math.sqrt(self.action_tokens.shape[1] * self.action_tokens.shape[2])
         with torch.no_grad():
-            nn.init.uniform_(self.action_tokens, -bound, bound, generator=gen)
+            _init_action_tokens(self.action_tokens, gen)
             self.seq_pos_embed.zero_()
-
-    def _embed_inputs(self, x):
-        """img tokens from the encoder memory, pred tokens from
-        cat(box_features, pred_logits, pred_boxes)."""
-        dt = self.dtype
-        img = self.img_feature_embedding(x["embedded_memory_features"])
-        preds = torch.cat([x["box_features"].to(dt), x["pred_logits"].to(dt),
-                           x["pred_boxes"].to(dt)], dim=-1)
-        return img, self.prediction_embedding(preds)
 
     def forward(self, x, gen=None):
         """x: dict of (b, s, ...) tensors `embedded_memory_features`,
         `box_features`, `pred_logits`, `pred_boxes`; dropout on with `gen`."""
         dt = self.dtype
-        img, pred_emb = self._embed_inputs(x)
+        img, pred_emb = self.embed(x)
         b, s, p, e = pred_emb.shape
         n_preds = s * p
         seq = torch.cat([img.reshape(b, -1, e), pred_emb.reshape(b, -1, e),
@@ -122,21 +141,82 @@ class FusionGPT(nn.Module):
         return self.heads(y_preds, y_actions)
 
 
+class FusionXAttn(_Embed):
+    """forward(x) reads a full episode (s = 5 frames): the stack's queries
+    are the s*p prediction tokens then the 5 action tokens, its memory the
+    s*361 image tokens (the reference zero-pads both to 5 frames, which at
+    s = 5 pads nothing). Memory positions are fixed: the 2-D sincos table
+    of the frame's grid in the first E/2 channels, the 1-D table of the
+    frame index in the last E/2. The heads read the stack's output
+    directly (no ln_f or head projection), with a 512-wide box MLP."""
+
+    def __init__(self, num_classes, num_queries=C.NUM_QUERIES, d_model=256, embed_dim=512,
+                 num_layers=4, num_heads=8, dropout_rate=0.1, dtype=torch.float32):
+        super().__init__(num_classes, d_model, embed_dim, dtype)
+        tgt_len = C.NUM_FRAMES * num_queries + C.NUM_FRAMES
+        self.action_tokens = nn.Parameter(torch.zeros(1, C.NUM_FRAMES, embed_dim))
+        self.query_embed = nn.Parameter(torch.zeros(tgt_len, embed_dim))
+        self.transformer = TransformerDecoderStack(embed_dim, num_heads, num_layers, 2048,
+                                                   dropout_rate, dtype)
+        self.heads = DecodeHeads(num_classes, embed_dim, 512, dtype)
+        self._pos = {}  # (img_len, device) -> memory positions
+
+    def init_weights(self, gen):
+        with torch.no_grad():
+            _init_action_tokens(self.action_tokens, gen)
+            self.query_embed.zero_()
+
+    def memory_positions(self, img_len, device):
+        """(1, 5*img_len, E) positions of the memory tokens, in the compute
+        dtype, built once per grid size and device."""
+        key = (img_len, str(device))
+        if key not in self._pos:
+            e = self.query_embed.shape[1]
+            img_pos = np.zeros((img_len, e), np.float32)
+            img_pos[:, : e // 2] = sincos_2d(e // 2, int(round(img_len ** 0.5)))
+            seq_pos = np.zeros((C.NUM_FRAMES, e), np.float32)
+            seq_pos[:, e // 2:] = sincos_1d(e // 2, np.arange(C.NUM_FRAMES))
+            pos = (seq_pos[:, None] + img_pos[None]).reshape(-1, e)
+            self._pos[key] = torch.as_tensor(pos, dtype=self.dtype, device=device)[None]
+        return self._pos[key]
+
+    def forward(self, x, gen=None):
+        """x as FusionGPT's; dropout on with `gen`."""
+        dt = self.dtype
+        img, pred_emb = self.embed(x)
+        b, s, p, e = pred_emb.shape
+        if s != C.NUM_FRAMES:
+            raise ValueError(f"the cross-attention fusion expects full episodes, got {s} frames")
+        tgt_len = s * p + C.NUM_FRAMES
+        if tgt_len != self.query_embed.shape[0]:
+            raise ValueError(f"{tgt_len} query tokens, the embedding has "
+                             f"{self.query_embed.shape[0]}")
+        memory = img.reshape(b, -1, e)
+        tgt = torch.cat([pred_emb.reshape(b, -1, e),
+                         self.action_tokens.to(dt).expand(b, -1, -1)], dim=1)
+        query_pos = self.query_embed.to(dt)[None].expand(b, -1, -1)
+        pos = self.memory_positions(img.shape[2], memory.device)
+        y = self.transformer(tgt, memory, query_pos, pos, gen)
+        y_preds = y[:, : -C.NUM_FRAMES].reshape(b, s, p, -1)
+        y_actions = y[:, -C.NUM_FRAMES:-1].reshape(b, C.NUM_ACTIONS, -1)
+        return self.heads(y_preds, y_actions)
+
+
 def build_fusion(config, dtype=torch.float32):
-    """The fusion module of a model TYPE; only the GPT variant is ported."""
+    """The fusion module of a model TYPE: FusionXAttn for
+    `interactron_random`, FusionGPT otherwise."""
     m = config.MODEL
+    common = dict(num_classes=m.NUM_CLASSES, d_model=int(m.get("D_MODEL", 256)),
+                  embed_dim=m.EMBEDDING_DIM, num_layers=m.NUM_LAYERS, num_heads=m.NUM_HEADS,
+                  dtype=dtype)
     if m.TYPE == "interactron_random":
-        raise NotImplementedError("FusionXAttn (interactron_random) is not ported yet")
+        return FusionXAttn(num_queries=int(m.get("NUM_QUERIES", C.NUM_QUERIES)),
+                           dropout_rate=m.get("RESIDUAL_PDROP", 0.1), **common)
     return FusionGPT(
-        num_classes=m.NUM_CLASSES,
-        d_model=int(m.get("D_MODEL", 256)),
-        embed_dim=m.EMBEDDING_DIM,
         output_size=m.OUTPUT_SIZE,
-        num_layers=m.NUM_LAYERS,
-        num_heads=m.NUM_HEADS,
         block_size=m.BLOCK_SIZE,
         embd_pdrop=m.get("EMBEDDING_PDROP", 0.1),
         attn_pdrop=m.get("ATTENTION_PDROP", 0.1),
         resid_pdrop=m.get("RESIDUAL_PDROP", 0.1),
-        dtype=dtype,
+        **common,
     )

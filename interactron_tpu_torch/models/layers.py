@@ -196,18 +196,21 @@ class Dropout(nn.Module):
 class MultiHeadAttention(nn.Module):
     """Torch-style MHA with separate q/k/v/out projections (with bias) and
     an fp32 softmax over the packed head layout; attention dropout at
-    `dropout_rate` when a generator is given."""
+    `dropout_rate` when a generator is given. `flash` and `chunked` are
+    ops/attention.py's switches (the task sets them from its config)."""
 
     def __init__(self, embed_dim, num_heads, dropout_rate=0.0, dtype=torch.float32,
                  kernel_init="xavier"):
         super().__init__()
         self.num_heads = num_heads
         self.dropout_rate = dropout_rate
+        self.flash, self.chunked = True, False
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
             self.add_module(name, Dense(embed_dim, embed_dim, dtype=dtype,
                                         kernel_init=kernel_init))
 
     def forward(self, q, k, v, gen=None):
         out = packed_attention(self.q_proj(q), self.k_proj(k), self.v_proj(v),
-                               self.num_heads, self.dropout_rate, gen)
+                               self.num_heads, self.dropout_rate, gen, self.flash,
+                               self.chunked)
         return self.out_proj(out)

@@ -1,8 +1,10 @@
-"""Sine positional encoding of an unpadded feature map (own copy of
-interactron_tpu/models/position_encoding.py::sine_position_embedding).
+"""Positional encodings (own copies of
+interactron_tpu/models/position_encoding.py): the sine encoding of an
+unpadded feature map, and the 1-D and 2-D sincos tables of FusionXAttn's
+memory positions.
 
-With no padding the reference's cumsums are row/column indices + 1, so the
-table is a constant of the grid size, computed once in numpy."""
+With no padding the reference's cumsums are row/column indices + 1, so
+every table is a constant of its sizes, computed once in numpy."""
 
 import numpy as np
 
@@ -24,3 +26,29 @@ def sine_position_embedding(h, w, num_pos_feats=128, temperature=10000.0):
     pos_y = np.stack([np.sin(pos_y[:, :, 0::2]), np.cos(pos_y[:, :, 1::2])], axis=3).reshape(h, w, -1)
     pos = np.concatenate([pos_y, pos_x], axis=2)
     return pos.reshape(h * w, -1).astype(np.float32)
+
+
+def sincos_1d(embed_dim, positions):
+    """(M,) positions -> (M, embed_dim) float32: [sin(p*w) | cos(p*w)] with
+    w = 1 / 10000^(i / (embed_dim/2)), computed in float64."""
+    if embed_dim % 2:
+        raise ValueError(f"embed_dim {embed_dim} must be even")
+    omega = np.arange(embed_dim // 2, dtype=np.float64)
+    omega /= embed_dim / 2.0
+    omega = 1.0 / 10000**omega
+    pos = np.asarray(positions, np.float64).reshape(-1)
+    out = np.einsum("m,d->md", pos, omega)
+    return np.concatenate([np.sin(out), np.cos(out)], axis=1).astype(np.float32)
+
+
+def sincos_2d(embed_dim, grid_size):
+    """(grid_size^2, embed_dim) float32 2-D sincos grid: the first half
+    encodes the column, the second the row (the reference's meshgrid puts w
+    first), flattened row-major."""
+    if embed_dim % 2:
+        raise ValueError(f"embed_dim {embed_dim} must be even")
+    g = np.arange(grid_size, dtype=np.float32)
+    gw, gh = np.meshgrid(g, g)
+    emb_h = sincos_1d(embed_dim // 2, gw.reshape(-1))
+    emb_w = sincos_1d(embed_dim // 2, gh.reshape(-1))
+    return np.concatenate([emb_h, emb_w], axis=1).astype(np.float32)

@@ -17,6 +17,7 @@ from torch.func import functional_call
 from interactron_tpu_torch.models.criterion import set_criterion
 from interactron_tpu_torch.models.detr import DETR
 from interactron_tpu_torch.models.fusion import build_fusion
+from interactron_tpu_torch.models.layers import MultiHeadAttention
 from interactron_tpu_torch.utils import constants as C
 
 _DTYPES = {None: torch.float32, "float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -31,8 +32,16 @@ def resolve_device(device=None):
     return dev
 
 
+def sub_generator(gen):
+    """A CPU generator seeded from `gen`: one dropout stream per pass."""
+    return torch.Generator().manual_seed(int(torch.randint(0, 2**62, (), generator=gen)))
+
+
 class TaskModel(nn.Module):
     needs_fusion = False
+    # rows of a transient path state when the caller threads none; the
+    # tasks without a policy keep no path state
+    default_path_rows = 0
 
     def __init__(self, config, device=None):
         super().__init__()
@@ -50,9 +59,17 @@ class TaskModel(nn.Module):
             ff_dim=int(m.get("DETR_FF_DIM", 2048)),
             dropout_rate=float(m.get("DETR_DROPOUT", 0.1)),
             backbone=m.get("BACKBONE", "resnet50"),
+            image_size=int(m.get("TEST_RESOLUTION", C.IMG_SIZE)),
             dtype=self.dtype,
         )
         self.fusion = build_fusion(config, self.dtype) if self.needs_fusion else None
+        # MODEL.FLASH_ATTENTION is on unless the config says False (CUDA is
+        # the port's accelerator); MODEL.CHUNKED_ATTENTION is off unless set
+        flash = bool(m.get("FLASH_ATTENTION", True))
+        chunked = bool(m.get("CHUNKED_ATTENTION", False))
+        for mod in self.modules():
+            if isinstance(mod, MultiHeadAttention):
+                mod.flash, mod.chunked = flash, chunked
         self.num_classes = m.NUM_CLASSES
         self.img_size = int(m.get("TEST_RESOLUTION", C.IMG_SIZE))
         self.max_boxes = min(C.MAX_BOXES, self.detector.num_queries)
@@ -83,6 +100,31 @@ class TaskModel(nn.Module):
         self.load_state_dict({k: torch.as_tensor(v) for k, v in state_dict.items()})
         return self
 
+    def init_path_state(self, num_episodes):
+        return {}
+
+    def modules_by_group(self):
+        """{"detector": module, "fusion": module}, without the fusion when
+        the task has none."""
+        return {grp: mod for grp, mod in (("detector", self.detector), ("fusion", self.fusion))
+                if mod is not None}
+
+    def trainable_leaves(self):
+        """{group: {name: leaf}}: leaves that share the parameters' storage
+        and require grad."""
+        return {grp: {n: p.detach().requires_grad_(True) for n, p in mod.named_parameters()}
+                for grp, mod in self.modules_by_group().items()}
+
+    def episode(self, batch, i):
+        """Episode i of a numpy batch as tensors on the task's device (frames
+        float32; labels, boxes, valid, actions and its uid as given)."""
+        dev = self.device
+        ep = {k: torch.as_tensor(batch[k][i], device=dev)
+              for k in ("frames", "labels", "boxes", "valid", "actions")}
+        ep["frames"] = ep["frames"].float()
+        ep["episode_uid"] = torch.as_tensor(batch["episode_uid"][i:i + 1], device=dev)
+        return ep
+
     def frames(self, episode):
         """episode["frames"] (1, s, H, W, 3) ImageNet-normalised, as a float32
         tensor on the model's device."""
@@ -94,14 +136,15 @@ class TaskModel(nn.Module):
         """Frozen stem+layer1 features (NCHW), shared by the detector passes."""
         return self.detector(images, stage="frozen_prefix")
 
-    def detr_apply(self, det_params, images, stage="all", gen=None):
+    def detr_apply(self, det_params, images, stage="all", gen=None, decoder_gen=None):
         """The detector with `det_params` ({name: tensor}) in place of its
         parameters, or its own parameters when `det_params` is None; dropout
-        on when a generator `gen` is given."""
+        on when a generator `gen` is given, and in the decoder also with
+        `decoder_gen` alone."""
+        kw = {"stage": stage, "gen": gen, "decoder_gen": decoder_gen}
         if det_params is None:
-            return self.detector(images, stage=stage, gen=gen)
-        return functional_call(self.detector, det_params, (images,),
-                               {"stage": stage, "gen": gen})
+            return self.detector(images, **kw)
+        return functional_call(self.detector, det_params, (images,), kw)
 
     def fusion_apply(self, detr_out, fus_params=None, gen=None):
         """Per-frame detector outputs (s, ...) -> fusion with batch dim 1,
@@ -119,3 +162,9 @@ class TaskModel(nn.Module):
         kw.setdefault("cost_bbox", self.cost_bbox)
         kw.setdefault("cost_giou", self.cost_giou)
         return set_criterion(outputs, targets, **kw)
+
+    @staticmethod
+    def rename(losses, prefix):
+        """k.replace("loss", f"loss_{prefix}"): the *_error keys keep their
+        names."""
+        return {k.replace("loss", f"loss_{prefix}"): v for k, v in losses.items()}

@@ -35,7 +35,7 @@ from interactron_tpu_torch.meta import (
     split_inner,
 )
 from interactron_tpu_torch.ops.attention import flash_disabled
-from interactron_tpu_torch.tasks.base import TaskModel
+from interactron_tpu_torch.tasks.base import TaskModel, sub_generator
 from interactron_tpu_torch.utils import constants as C
 from interactron_tpu_torch.utils.device_path_storage import init_path_state, update_and_label
 
@@ -47,15 +47,9 @@ def _weighted(losses):
     return losses["loss_ce"] + 5.0 * losses["loss_giou"] + 2.0 * losses["loss_bbox"]
 
 
-def _sub_generator(gen):
-    """A CPU generator seeded from `gen`: one dropout stream per pass."""
-    return torch.Generator().manual_seed(int(torch.randint(0, 2**62, (), generator=gen)))
-
-
 class InteractronRandomTask(TaskModel):
     needs_fusion = True
     with_policy = False
-    # rows of a transient path state when the caller threads none
     default_path_rows = 4096
 
     def init_path_state(self, num_episodes):
@@ -97,20 +91,6 @@ class InteractronRandomTask(TaskModel):
         return {"pred_logits": out0["pred_logits"][None], "pred_boxes": out0["pred_boxes"][None]}
 
     # ------------------------------------------------------------ train step
-
-    def trainable_leaves(self):
-        """{"detector": {name: leaf}, "fusion": {name: leaf}}: leaves that
-        share the parameters' storage and require grad."""
-        return {grp: {n: p.detach().requires_grad_(True) for n, p in mod.named_parameters()}
-                for grp, mod in (("detector", self.detector), ("fusion", self.fusion))}
-
-    def _episode(self, batch, i):
-        dev = self.device
-        ep = {k: torch.as_tensor(batch[k][i], device=dev)
-              for k in ("frames", "labels", "boxes", "valid", "actions")}
-        ep["frames"] = ep["frames"].float()
-        ep["episode_uid"] = torch.as_tensor(batch["episode_uid"][i:i + 1], device=dev)
-        return ep
 
     def _episode_fwd(self, params, ep, ridx, gens, second_order):
         """(main loss, action logits (4, 4), aux) of one episode. `gens` holds
@@ -178,7 +158,7 @@ class InteractronRandomTask(TaskModel):
         b = batch["frames"].shape[0]
         params = (self.trainable_leaves() if with_grads else
                   {grp: dict(mod.named_parameters())
-                   for grp, mod in (("detector", self.detector), ("fusion", self.fusion))})
+                   for grp, mod in self.modules_by_group().items()})
         names = [(grp, n) for grp, d in params.items() for n in d]
         leaves = [params[grp][n] for grp, n in names]
         if path_state is None and self.with_policy:
@@ -186,10 +166,10 @@ class InteractronRandomTask(TaskModel):
         m = {}
         grads = {grp: {n: torch.zeros_like(p) for n, p in d.items()} for grp, d in params.items()}
         for i in range(b):
-            ep = self._episode(batch, i)
+            ep = self.episode(batch, i)
             ridx = (int(frame_index[i]) if frame_index is not None
                     else int(torch.randint(0, C.NUM_FRAMES, (), generator=gen)))
-            gens = [_sub_generator(gen) if train else None for _ in range(4)]
+            gens = [sub_generator(gen) if train else None for _ in range(4)]
             main, logits, aux = self._episode_fwd(params, ep, ridx, gens, with_grads)
             with torch.set_grad_enabled(with_grads):
                 loss_path, path_state = self._policy_piece(logits, aux, ep, path_state)
@@ -211,11 +191,9 @@ class InteractronRandomTask(TaskModel):
         return grads if with_grads else None, self._finalize_metrics(m, b), path_state
 
     def _finalize_metrics(self, m, b):
-        out = {}
-        for k in _SUP_KEYS:
-            out[k.replace("loss", "loss_detector") if "loss" in k else k] = m[f"det_{k}"] / b
-        for k in _SUP_KEYS:
-            out[k.replace("loss", "loss_supervisor") if "loss" in k else k] = m[f"sup_{k}"] / b
+        # the supervisor's cardinality and class errors overwrite the detector's
+        out = self.rename({k: m[f"det_{k}"] / b for k in _SUP_KEYS}, "detector")
+        out.update(self.rename({k: m[f"sup_{k}"] / b for k in _SUP_KEYS}, "supervisor"))
         if self.with_policy:
             out["loss_supervisor_path"] = m["loss_path"] / b
             out["policy_reward"] = m["policy_reward"] / b

@@ -1,9 +1,11 @@
 """YAML -> attribute-access config tree, command-line arguments and the
 component factories (own copy of interactron_tpu/utils/config.py): nested
 sections become attributes and numeric strings coerce to int/float. The
-factories build the rows the port has: model and trainer `interactron`,
-evaluators `random_policy_evaluator` and `interactive_evaluator`; any other
-row raises NotImplementedError."""
+factories build every row of the JAX package's: models `detr`,
+`detr_multiframe`, `interactron_random` and `interactron`, trainers
+`interactron`, `interactron_random` and `direct_supervision`, evaluators
+`random_policy_evaluator` and `interactive_evaluator`; any other TYPE
+raises ValueError."""
 
 import argparse
 import os
@@ -53,25 +55,32 @@ def get_args(argv=None):
     return parser.parse_args(argv)
 
 
-_NOT_PORTED = "is not ported yet (ROADMAP.md, Queue 1 item 8)"
+VALID_MODELS = ("detr", "detr_multiframe", "interactron_random", "interactron")
+VALID_TRAINERS = ("interactron", "interactron_random", "direct_supervision")
+VALID_EVALUATORS = ("random_policy_evaluator", "interactive_evaluator")
+
+
+def _check_type(kind, value, valid):
+    if value not in valid:
+        raise ValueError(f"{kind} type {value!r} not in {valid}")
 
 
 def build_model(config, device=None):
     """The task of MODEL.TYPE on `device` (CUDA by default, as
     tasks/base.py::resolve_device); its weights are drawn by `init`."""
     t = config.MODEL.TYPE
-    if t != "interactron":
-        raise NotImplementedError(f"model type {t!r} {_NOT_PORTED}")
-    from interactron_tpu_torch.tasks import InteractronTask
+    _check_type("model", t, VALID_MODELS)
+    from interactron_tpu_torch import tasks
 
-    return InteractronTask(config, device=device)
+    cls = {"detr": tasks.DETRTask, "detr_multiframe": tasks.MultiFrameTask,
+           "interactron_random": tasks.InteractronRandomTask,
+           "interactron": tasks.InteractronTask}[t]
+    return cls(config, device=device)
 
 
 def build_trainer(task, config, evaluator=None):
     """The Trainer of TRAINER.TYPE; it trains `task` on the task's device."""
-    t = config.TRAINER.TYPE
-    if t != "interactron":
-        raise NotImplementedError(f"trainer type {t!r} {_NOT_PORTED}")
+    _check_type("trainer", config.TRAINER.TYPE, VALID_TRAINERS)
     from interactron_tpu_torch.engine.trainer import Trainer
 
     return Trainer(task, config, evaluator=evaluator)
@@ -81,9 +90,7 @@ def build_evaluator(task, config, load_checkpoint=False):
     """The evaluator of EVALUATOR.TYPE over DATASET.TEST."""
     from interactron_tpu_torch.engine.evaluator import InteractiveEvaluator, RandomPolicyEvaluator
 
-    classes = {"random_policy_evaluator": RandomPolicyEvaluator,
-               "interactive_evaluator": InteractiveEvaluator}
     t = config.EVALUATOR.TYPE
-    if t not in classes:
-        raise NotImplementedError(f"evaluator type {t!r} {_NOT_PORTED}")
-    return classes[t](task, config, load_checkpoint=load_checkpoint)
+    _check_type("evaluator", t, VALID_EVALUATORS)
+    cls = RandomPolicyEvaluator if t == "random_policy_evaluator" else InteractiveEvaluator
+    return cls(task, config, load_checkpoint=load_checkpoint)

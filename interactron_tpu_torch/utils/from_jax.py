@@ -9,7 +9,12 @@ Flax tree paths become dotted names ({"detector": {"backbone": {"conv1":
   * LayerNorm `scale` -> `weight`;
   * the frozen collection (stem+layer1 kernels, FrozenBatchNorm tensors)
     merged into the same names, where the port keeps them as buffers.
-Everything else keeps its name and layout.
+Everything else keeps its name and layout: the detector of every backbone
+(ResNet-50-DC5, the tiny one, ViT-B/16 with its `patch_embed` Dense and
+`pos_embed` table) and both fusion variants (FusionGPT; FusionXAttn's
+`action_tokens`, `query_embed`, `transformer.*` and `heads.*`) map leaf
+for leaf; a tree without "fusion" (the `detr` task) maps the detector
+alone.
 """
 
 import numpy as np

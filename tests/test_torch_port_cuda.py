@@ -39,7 +39,10 @@ def _cuda():
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,t,s,hd", [(5, 361, 361, 32), (1, 2060, 2060, 64),
-                                      (1, 255, 2060, 64), *RAGGED])
+                                      (1, 255, 2060, 64), *RAGGED,
+                                      # FusionXAttn's cross-attention; the DETR
+                                      # encoder over a batch of 4 x 5 frames
+                                      (1, 255, 1805, 64), (20, 361, 361, 32)])
 def test_kernels_match_plain_on_cuda(b, t, s, hd, dtype, rate):
     """flash_fwd, flash_bwd, flash_dq, flash_dkv and flash_so against their
     plain versions. With one key (S = 1) the softmax has no gradient:

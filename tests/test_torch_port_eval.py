@@ -233,5 +233,6 @@ def test_evaluator_saves_results(setup, monkeypatch):
 def test_lockstep_rollout_raises(setup):
     d, *_, ttask = setup
     d = dict(d, EVALUATOR=dict(d["EVALUATOR"], TYPE="interactive_evaluator", ROLLOUT_BATCH=2))
+    evaluator = build_evaluator(ttask, Config(d))  # builds; the rollout raises
     with pytest.raises(NotImplementedError, match="ROLLOUT_BATCH 2"):
-        build_evaluator(ttask, Config(d))
+        evaluator.evaluate()

@@ -209,13 +209,90 @@ def test_entry_points_without_cuda_raise(run, tmp_path, monkeypatch, entry):
         entry(["--config_file", str(path)])
 
 
+def _tiny_yaml(name, tree, out, backbone=None):
+    """configs/<name>.yaml with the tiny config's widths (its TYPE and, unless
+    `backbone` is given, its BACKBONE kept), DATASET on `tree` and outputs
+    under `out`; the loop cut to 2 epochs, SAVE_WINDOW 1, no loader threads."""
+    with open(os.path.join(os.path.dirname(__file__), "..", "configs", f"{name}.yaml")) as f:
+        d = yaml.safe_load(f)
+    tiny = tiny_config().to_dict()["MODEL"]
+    d["MODEL"].update({k: v for k, v in tiny.items() if k not in ("TYPE", "BACKBONE")},
+                      DTYPE="float32", WEIGHTS="")
+    if backbone:
+        d["MODEL"]["BACKBONE"] = backbone
+    img_root, ann = tree
+    d["DATASET"] = {split: dict(d["DATASET"][split], ANNOTATION_ROOT=ann, IMAGE_ROOT=img_root)
+                    for split in ("TRAIN", "TEST")}
+    d["TRAINER"].update(BATCH_SIZE=2, MAX_EPOCHS=2, SAVE_WINDOW=1, NUM_WORKERS=0,
+                        OUTPUT_DIRECTORY=str(out / "train"))
+    d["EVALUATOR"].update(NUM_WORKERS=0, OUTPUT_DIRECTORY=str(out / "eval"))
+    return d
+
+
+@pytest.fixture(scope="module")
+def tree(tmp_path_factory):
+    root = tmp_path_factory.mktemp("configs_tree")
+    return make_synthetic_dataset(str(root), n_episodes=3, n_states=6, img_size=IMG,
+                                  n_categories=NUM_CLASSES - 1)
+
+
+CONFIGS = ("interactron", "interactron_random", "interactron_scaled", "multi_frame_baseline",
+           "single_frame_baseline")
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_factories_build_every_config(name, tree, tmp_path):
+    """build_model, build_evaluator and build_trainer construct every
+    shipped configuration on the CPU at tiny widths (ViT-B/16 stays full
+    width: it has no width keys), the task and trainer of its TYPEs."""
+    d = _tiny_yaml(name, tree, tmp_path)
+    cfg = Config(d)
+    task = build_model(cfg, device="cpu")
+    evaluator = build_evaluator(task, cfg)
+    trainer = build_trainer(task, cfg, evaluator=evaluator)
+    want_task = {"interactron": "InteractronTask", "interactron_random": "InteractronRandomTask",
+                 "detr_multiframe": "MultiFrameTask", "detr": "DETRTask"}[d["MODEL"]["TYPE"]]
+    assert type(task).__name__ == want_task
+    assert type(evaluator).__name__ == {"random_policy_evaluator": "RandomPolicyEvaluator",
+                                        "interactive_evaluator": "InteractiveEvaluator"}[
+        d["EVALUATOR"]["TYPE"]]
+    assert list(trainer.opts) == (["all"] if d["TRAINER"]["TYPE"] == "direct_supervision"
+                                  else ["detector", "fusion"])
+    assert (task.fusion is not None) == (d["MODEL"]["TYPE"] != "detr")
+    assert task.detector.vit == (d["MODEL"]["BACKBONE"] == "vit_b16")
+
+
 @pytest.mark.parametrize("section,value,build", [
-    ("MODEL", "detr", lambda cfg: build_model(cfg, device="cpu")),
-    ("TRAINER", "direct_supervision", lambda cfg: build_trainer(None, cfg)),
+    ("MODEL", "detr_random", lambda cfg: build_model(cfg, device="cpu")),
+    ("TRAINER", "supervised", lambda cfg: build_trainer(None, cfg)),
     ("EVALUATOR", "lockstep_evaluator", lambda cfg: build_evaluator(None, cfg)),
 ])
-def test_factories_raise_for_rows_not_ported(section, value, build):
+def test_factories_reject_unknown_types(section, value, build):
     d = tiny_config().to_dict()
     d[section]["TYPE"] = value
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(ValueError, match=f"type {value!r} not in"):
         build(Config(d))
+
+
+@pytest.mark.parametrize("name", ["multi_frame_baseline", "interactron_random"])
+def test_entry_points_run_other_configs(name, tree, tmp_path):
+    """`python -m interactron_tpu_torch.train` and `...evaluate` on the
+    synthetic tree (tiny widths and backbone): two epochs with their
+    records, checkpoints, and an evaluation of `detector.ckpt` whose AP is
+    the trained epoch's."""
+    d = _tiny_yaml(name, tree, tmp_path, backbone="tiny")
+    path = tmp_path / "config.yaml"
+    path.write_text(yaml.safe_dump(d))
+    trainer = t_train.train(["--config_file", str(path), "--device", "cpu"])
+    recs = _records(trainer.out_dir)
+    assert [r["step"] for r in recs] == [0, 1]
+    assert all(math.isfinite(v) for r in recs for v in r.values())
+    # the config's LEARNING_RATE (YAML reads 1e-5 as a string), or the
+    # supervisor's 1e-4 that the interactron_random trainer hardcodes
+    assert recs[1]["Train/LR"] == (float(d["TRAINER"]["LEARNING_RATE"])
+                                   if name == "multi_frame_baseline" else 1e-4)
+    assert sorted(os.listdir(trainer.out_dir)) == ["detector.ckpt", "last_state.ckpt", "logs"]
+    d["EVALUATOR"]["CHECKPOINT"] = trainer.checkpoint_path
+    path.write_text(yaml.safe_dump(d))
+    summary = t_evaluate.evaluate(["--config_file", str(path), "--device", "cpu"])
+    assert summary["AP_50"] == recs[1]["Test/mAP_50"]

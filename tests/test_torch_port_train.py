@@ -58,14 +58,14 @@ def _jax_step(jtask, params, frozen, batch, rng, train):
 
 def _assert_grads_match(got, want):
     n = 0
-    for grp in ("detector", "fusion"):
+    for grp in want:
         for path, g in _flatten(want[grp]):
             name, g_np = _leaf(path, g)
             diff = np.abs(got[grp][name].numpy() - g_np)
             tol = 1e-4 * max(np.abs(g_np).max(), 1e-2)
             assert diff.max() <= tol, (grp, name, diff.max(), tol)
             n += 1
-    assert n == sum(len(d) for d in got.values())
+    assert set(got) == set(want) and n == sum(len(d) for d in got.values())
 
 
 def _assert_metrics_match(got, want):
