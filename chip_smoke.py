@@ -21,21 +21,32 @@ Phases, each of which fails the run (non-zero exit, no "ok" line):
      redesigned kernels (the seven on wgmma and TMA: flash_fwd, flash_bwd,
      flash_dq, flash_dkv, flash_so, flash_so_row, flash_so_col; and the
      mask); the split formulation's kernels also against the merged ones,
-     and twice with equal outputs; (b) those seven kernels at ragged shapes
+     and twice with equal outputs; the shapes include a train microbatch of
+     4 episodes and a lockstep chunk of 10 (forward, and backward where the
+     path runs one: SHAPE_KERNELS); (b) those seven kernels at ragged shapes
      that end inside their 64-row tiles;
   4. full-width fp32 `predict` of configs/interactron.yaml (seed 0): the card
-     against the CPU, which runs the plain versions;
+     against the CPU, which runs the plain versions; (b) at PARITY_DEPTH, a
+     batched predict of 2 episodes against the same episodes one at a time
+     on the card and against the CPU's batched predict;
   5. the served path in bf16: 4 episodes of next_action at s=1..4 and then
-     predict, in the evaluator's order, with the kernel launch counters
-     checked against the counts the path must make;
-  6. device time by kernel over one bf16 predict (torch.profiler);
+     predict, in the evaluator's order, one at a time, then 20 in lockstep
+     chunks of 10 (one batched call per prefix length and one predict a
+     chunk), with the kernel launch counters checked against the counts the
+     path must make, and the episodes/s of both;
+  6. device time by kernel over one bf16 predict and one lockstep predict
+     of 10 (torch.profiler), with the fast weights' grouped convolutions;
   7. one full-width fp32 episode of the second-order meta-train step
-     (`grads_and_metrics`, dropout on): the card against the CPU;
-  8. bf16 training: 3 optimizer steps of 4 episodes (the config's batch of
-     16 cut to 4 for time), dropout at the config's rates, with the launch
-     counters checked against the counts the train path must make; the
-     regions its mask launches request, with their counts, and the mask
-     kernel timed at the largest module-dropout region among them;
+     (`grads_and_metrics`, dropout on): the card against the CPU; (b) at
+     PARITY_DEPTH with dropout off, a train step of 2 episodes at
+     INNER_BATCH 2 against INNER_BATCH 1 on the card and against the CPU;
+  8. bf16 training: 3 optimizer steps of 4 episodes at the config's
+     INNER_BATCH 4 (one microbatch a step; the config's batch of 16 cut to 4
+     for time), then one step at INNER_BATCH 1, dropout at the config's
+     rates, with the launch counters checked against the counts the train
+     path must make; the regions its mask launches request, with their
+     counts, and the mask kernel timed at the largest module-dropout region
+     among them;
   9. device time by kernel over one bf16 train step (torch.profiler);
  10. the split formulation (FLASH_BWD=split SO_MERGED=0): fp32 split vs
      merged on the card (inner gradient, second-order probe, one train
@@ -44,21 +55,32 @@ Phases, each of which fails the run (non-zero exit, no "ok" line):
  11. train and evaluate from disk (`train_from_disk`): the port's synthetic
      writer puts a JPEG tree in a temporary directory, and `Trainer.train`
      runs over it at full width in bf16 (config cuts: batch 4, 2 epochs,
-     SAVE_WINDOW 1, the serial interactive evaluator): the epoch-0 test
+     SAVE_WINDOW 1; the config's INNER_BATCH and ROLLOUT_BATCH, the
+     interactive evaluator in lockstep): the epoch-0 test
      epoch and closed-loop evaluation with AP, one train epoch whose steps
      launch what phase 8's do, checkpoints; `detector.ckpt` must predict
      `torch.equal` to the trained task, and a resume from `last_state.ckpt`
      restores the train state exactly and runs one more epoch. It logs the
      loader's, the train epoch's and the evaluation's episodes/s, the host
-     scoring time, and the checkpoints' size and save and load times.
+     scoring time, and the checkpoints' size and save and load times; (b)
+     `python -m interactron_tpu_torch.train` on configs/interactron.yaml with
+     only its DATASET, epoch, batch and output cuts, resuming from this
+     phase's state, in a child process, after one bf16 step from the entry
+     point's own seed-42 weights whose non-finite gradient leaves are
+     counted; (c) the fp32 lockstep evaluation's predictions and records
+     against the serial rollout's on the card, and a planted wrong pairing
+     of episodes and fast weights that the hold must catch.
  12. the other shipped configurations (`other_configs`): interactron_random
      (FusionXAttn), single_frame_baseline (detr), multi_frame_baseline
      (detr_multiframe) and interactron_scaled (ViT-B/16 at 304 px), each
      (a) in fp32, card vs CPU, at a cut depth: predict and one train
      episode with dropout on; (b) in bf16 at full width from phase 11's tree:
-     `Trainer.train` (batch 4, 2 epochs) with the config's trainer and
-     evaluator, and three predicts, every launch count held against the
-     module structure's; its episodes/s, predict ms and peak memory.
+     `Trainer.train` (batch 4, 2 epochs) with the config's trainer,
+     INNER_BATCH and evaluator (the interactive one in lockstep at its
+     default ROLLOUT_BATCH, held in fp32 (c) as phase 11c holds it), and
+     three predicts, every launch count held
+     against the module structure's; its episodes/s, predict ms and peak
+     memory.
 Phases 1-9, 11 and 12 run the default (merged) formulation (but for phase
 11's predict check, which runs split so that two runs are bitwise equal):
 the switches are cleared first.
@@ -109,7 +131,23 @@ SHAPES = [
     ("vit", 5, 361, 361, 12, 64),
     # the single-frame baseline's DETR encoder over a batch of 4 x 5 frames
     ("encoder_b20", 20, 361, 361, 8, 32),
+    # a train microbatch of TRAINER.INNER_BATCH 4 episodes: FusionGPT, its
+    # last block, FusionXAttn's cross-attention, the ViT-B/16 over 20 frames
+    ("fusion_b4", 4, 2060, 2060, 8, 64),
+    ("fusion_last_b4", 4, 255, 2060, 8, 64),
+    ("xattn_b4", 4, 255, 1805, 8, 64),
+    ("vit_b20", 20, 361, 361, 12, 64),
+    # a lockstep chunk of 10 episodes (EVALUATOR.ROLLOUT_BATCH 10): predict's
+    # DETR encoder over 50 frames and FusionGPT over 10 episodes (forward and
+    # first-order backward), next_action's fusion at s = 4 (forward)
+    ("encoder_b50", 50, 361, 361, 8, 32),
+    ("fusion_b10", 10, 2060, 2060, 8, 64),
+    ("fusion_s4_b10", 10, 1649, 1649, 8, 64),
 ]
+# the kernels of the shapes whose paths run fewer than all seven
+# attention kernels (REDESIGNED)
+SHAPE_KERNELS = {"encoder_b50": ("fwd", "bwd"), "fusion_b10": ("fwd", "bwd"),
+                 "fusion_s4_b10": ("fwd",)}
 # (name, B, T, S, H, D) where T and S end inside the wgmma kernels' 64-row
 # tiles
 RAGGED = [
@@ -118,8 +156,9 @@ RAGGED = [
     ("ragged_s255", 1, 2060, 255, 8, 64),
 ]
 # the shapes where the split kernels run twice and must give equal outputs
-REPRODUCED = ("fusion", "xattn", "vit", "encoder_b20")
-# the kernels whose bf16 instantiations run on wgmma and TMA
+REPRODUCED = ("fusion", "xattn", "vit", "encoder_b20", "fusion_b4", "vit_b20")
+# the kernels whose bf16 instantiations run on wgmma and TMA: all seven
+# attention kernels
 REDESIGNED = ("fwd", "bwd", "dq", "dkv", "so", "so_row", "so_col")
 # max abs error allowed, as a multiple of the reference's max abs value
 TOL = {
@@ -130,6 +169,7 @@ TOL = {
                            "bf16 inputs"),
 }
 EPISODES = 4
+CHUNK = 10  # phase 5's lockstep chunk: EVALUATOR.ROLLOUT_BATCH's default
 
 
 def log(*a):
@@ -276,11 +316,14 @@ def _check_errs(label, pairs, rel, why):
 
 def check_kernels(fa):
     """Phase 3: kernel vs plain on the card at the paths' shapes, and the
-    split formulation's kernels vs the merged ones. Returns {(shape, dtype,
-    rate): entry} with the errors, and in bf16 the times."""
+    split formulation's kernels vs the merged ones. A shape listed in
+    SHAPE_KERNELS holds and times only the kernels its path runs. Returns
+    {(shape, dtype, rate): entry} with the errors, and in bf16 the times."""
     results = {}
     gen = torch.Generator(device="cuda").manual_seed(0)
     for name, b, t, s, h, d in SHAPES:
+        kns = SHAPE_KERNELS.get(name, REDESIGNED)
+        full = kns == REDESIGNED
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, do, a, bc, c = _randn(gen, b, h, d, dtype, (t, s, s, t, t, s, s))
             f32 = [x.float() for x in (q, k, v, do, a, bc, c)]
@@ -289,49 +332,53 @@ def check_kernels(fa):
                 seed = SEED if rate else 0
                 drop = (rate, seed)
                 o_ref, lse_ref = fa.flash_fwd_plain(*f32[:3], h, *drop)
-                delta_ref = fa._delta(f32[3], o_ref, h)
                 res_ref = (o_ref, lse_ref, f32[3], h, *drop)
-                bwd_ref = fa.flash_bwd_plain(*f32[:3], *res_ref)
-                dq_ref = fa.flash_dq_plain(*f32[:3], *res_ref)
-                dkv_ref = fa.flash_dkv_plain(*f32[:3], *res_ref)
-                so_in_ref = (*f32, lse_ref, delta_ref)
-                so_ref = fa.flash_so_plain(*so_in_ref, h, *drop)
-                row_ref = fa.flash_so_row_plain(*so_in_ref, h, *drop)
-                col_ref = fa.flash_so_col_plain(*so_in_ref, *row_ref[2:], h, *drop)
                 o, lse = fa.flash_fwd(q, k, v, h, *drop)
                 res = (o, lse, do, h, *drop)
-                bwd = fa.flash_bwd(q, k, v, *res)
-                dq = fa.flash_dq(q, k, v, *res)
-                dkv = fa.flash_dkv(q, k, v, *res)
-                # the second-order kernels on the plain version's L, D and
-                # row statistics, so that each check is of one kernel alone
-                so_in = (q, k, v, do, a, bc, c, lse_ref, delta_ref)
-                so = fa.flash_so(*so_in, h, *drop)
-                row = fa.flash_so_row(*so_in, h, *drop)
-                col = fa.flash_so_col(*so_in, *row_ref[2:], h, *drop)
-                col_own = fa.flash_so_col(*so_in, *row[2:], h, *drop)
-                qg, kg, vg = (x.clone().requires_grad_(True) for x in (q, k, v))
-                og = fa.FlashAttention.apply(qg, kg, vg, h, *drop)
-                og.backward(do)
+                pairs = [("O", o, o_ref), ("L", lse, lse_ref)]
+                if "bwd" in kns:
+                    bwd_ref = fa.flash_bwd_plain(*f32[:3], *res_ref)
+                    bwd = fa.flash_bwd(q, k, v, *res)
+                    qg, kg, vg = (x.clone().requires_grad_(True) for x in (q, k, v))
+                    og = fa.FlashAttention.apply(qg, kg, vg, h, *drop)
+                    og.backward(do)
+                    pairs += [("O_autograd", og, o_ref), ("dq", bwd[0], bwd_ref[0]),
+                              ("dk", bwd[1], bwd_ref[1]), ("dv", bwd[2], bwd_ref[2]),
+                              ("dq_autograd", qg.grad, bwd_ref[0])]
+                if full:
+                    delta_ref = fa._delta(f32[3], o_ref, h)
+                    dq_ref = fa.flash_dq_plain(*f32[:3], *res_ref)
+                    dkv_ref = fa.flash_dkv_plain(*f32[:3], *res_ref)
+                    so_in_ref = (*f32, lse_ref, delta_ref)
+                    so_ref = fa.flash_so_plain(*so_in_ref, h, *drop)
+                    row_ref = fa.flash_so_row_plain(*so_in_ref, h, *drop)
+                    col_ref = fa.flash_so_col_plain(*so_in_ref, *row_ref[2:], h, *drop)
+                    dq = fa.flash_dq(q, k, v, *res)
+                    dkv = fa.flash_dkv(q, k, v, *res)
+                    # the second-order kernels on the plain version's L, D and
+                    # row statistics, so that each check is of one kernel alone
+                    so_in = (q, k, v, do, a, bc, c, lse_ref, delta_ref)
+                    so = fa.flash_so(*so_in, h, *drop)
+                    row = fa.flash_so_row(*so_in, h, *drop)
+                    col = fa.flash_so_col(*so_in, *row_ref[2:], h, *drop)
+                    col_own = fa.flash_so_col(*so_in, *row[2:], h, *drop)
+                    pairs += [("dq_split", dq, dq_ref), ("dk_split", dkv[0], dkv_ref[0]),
+                              ("dv_split", dkv[1], dkv_ref[1]),
+                              ("c_q", so[0], so_ref[0]), ("c_k", so[1], so_ref[1]),
+                              ("c_v", so[2], so_ref[2]), ("c_dO", so[3], so_ref[3]),
+                              ("c_q_row", row[0], row_ref[0]), ("c_dO_row", row[1], row_ref[1]),
+                              ("g_D", row[2], row_ref[2]), ("s_gp", row[3], row_ref[3]),
+                              ("c_k_col", col[0], col_ref[0]), ("c_v_col", col[1], col_ref[1])]
                 torch.cuda.synchronize()
                 label = f"{name:12s} {str(dtype)[6:]:8s} rate {rate:g}"
-                errs = _check_errs(label, (
-                    ("O", o, o_ref), ("O_autograd", og, o_ref), ("L", lse, lse_ref),
-                    ("dq", bwd[0], bwd_ref[0]), ("dk", bwd[1], bwd_ref[1]),
-                    ("dv", bwd[2], bwd_ref[2]), ("dq_autograd", qg.grad, bwd_ref[0]),
-                    ("dq_split", dq, dq_ref), ("dk_split", dkv[0], dkv_ref[0]),
-                    ("dv_split", dkv[1], dkv_ref[1]),
-                    ("c_q", so[0], so_ref[0]), ("c_k", so[1], so_ref[1]),
-                    ("c_v", so[2], so_ref[2]), ("c_dO", so[3], so_ref[3]),
-                    ("c_q_row", row[0], row_ref[0]), ("c_dO_row", row[1], row_ref[1]),
-                    ("g_D", row[2], row_ref[2]), ("s_gp", row[3], row_ref[3]),
-                    ("c_k_col", col[0], col_ref[0]), ("c_v_col", col[1], col_ref[1])), rel, why)
-                # the split composition against the merged kernels
-                _check_errs(label + " split vs merged", (
-                    ("dq", dq, bwd[0].float()), ("dk", dkv[0], bwd[1].float()),
-                    ("dv", dkv[1], bwd[2].float()), ("c_q", row[0], so[0].float()),
-                    ("c_k", col_own[0], so[1].float()), ("c_v", col_own[1], so[2].float()),
-                    ("c_dO", row[1], so[3].float())), rel, why)
+                errs = _check_errs(label, pairs, rel, why)
+                if full:
+                    # the split composition against the merged kernels
+                    _check_errs(label + " split vs merged", (
+                        ("dq", dq, bwd[0].float()), ("dk", dkv[0], bwd[1].float()),
+                        ("dv", dkv[1], bwd[2].float()), ("c_q", row[0], so[0].float()),
+                        ("c_k", col_own[0], so[1].float()), ("c_v", col_own[1], so[2].float()),
+                        ("c_dO", row[1], so[3].float())), rel, why)
                 entry = {"errs": errs}
                 if name in REPRODUCED and dtype == torch.bfloat16 and rate > 0:
                     again = (fa.flash_dq(q, k, v, *res), *fa.flash_dkv(q, k, v, *res),
@@ -342,23 +389,28 @@ def check_kernels(fa):
                     if not all(same):
                         raise AssertionError(f"split kernels not reproducible: {same}")
                 if dtype == torch.bfloat16:
-                    row_stats = row_ref[2:]
                     timed = {
                         "fwd": (lambda: fa.flash_fwd(q, k, v, h, *drop),
                                 lambda: fa.flash_fwd_plain(q, k, v, h, *drop)),
                         "bwd": (lambda: fa.flash_bwd(q, k, v, *res),
                                 lambda: fa.flash_bwd_plain(q, k, v, *res)),
-                        "dq": (lambda: fa.flash_dq(q, k, v, *res),
-                               lambda: fa.flash_dq_plain(q, k, v, *res)),
-                        "dkv": (lambda: fa.flash_dkv(q, k, v, *res),
-                                lambda: fa.flash_dkv_plain(q, k, v, *res)),
-                        "so": (lambda: fa.flash_so(*so_in, h, *drop),
-                               lambda: fa.flash_so_plain(*so_in, h, *drop)),
-                        "so_row": (lambda: fa.flash_so_row(*so_in, h, *drop),
-                                   lambda: fa.flash_so_row_plain(*so_in, h, *drop)),
-                        "so_col": (lambda: fa.flash_so_col(*so_in, *row_stats, h, *drop),
-                                   lambda: fa.flash_so_col_plain(*so_in, *row_stats, h, *drop)),
                     }
+                    if full:
+                        row_stats = row_ref[2:]
+                        timed.update({
+                            "dq": (lambda: fa.flash_dq(q, k, v, *res),
+                                   lambda: fa.flash_dq_plain(q, k, v, *res)),
+                            "dkv": (lambda: fa.flash_dkv(q, k, v, *res),
+                                    lambda: fa.flash_dkv_plain(q, k, v, *res)),
+                            "so": (lambda: fa.flash_so(*so_in, h, *drop),
+                                   lambda: fa.flash_so_plain(*so_in, h, *drop)),
+                            "so_row": (lambda: fa.flash_so_row(*so_in, h, *drop),
+                                       lambda: fa.flash_so_row_plain(*so_in, h, *drop)),
+                            "so_col": (lambda: fa.flash_so_col(*so_in, *row_stats, h, *drop),
+                                       lambda: fa.flash_so_col_plain(*so_in, *row_stats, h,
+                                                                     *drop)),
+                        })
+                    timed = {kn: fns for kn, fns in timed.items() if kn in kns}
                     for kn, (kern, plain) in timed.items():
                         entry[f"{kn}_ms"] = cuda_ms(kern)
                         entry[f"{kn}_plain_ms"] = cuda_ms(plain)
@@ -376,21 +428,29 @@ def check_kernels(fa):
                         qh, kh, vh = heads(q, t), heads(k, s), heads(v, s)
                         entry["fwd_library_ms"] = cuda_ms(
                             lambda: F.scaled_dot_product_attention(qh, kh, vh))
-                        ql, kl, vl = (x.detach().clone().requires_grad_(True)
-                                      for x in (qh, kh, vh))
-                        ol = F.scaled_dot_product_attention(ql, kl, vl)
-                        doh = heads(do, t)
-                        entry["bwd_library_ms"] = cuda_ms(
-                            lambda: torch.autograd.grad(ol, (ql, kl, vl), doh, retain_graph=True))
-                        entry["dq_library_ms"] = entry["dkv_library_ms"] = entry["bwd_library_ms"]
+                        if "bwd" in kns:
+                            ql, kl, vl = (x.detach().clone().requires_grad_(True)
+                                          for x in (qh, kh, vh))
+                            ol = F.scaled_dot_product_attention(ql, kl, vl)
+                            doh = heads(do, t)
+                            entry["bwd_library_ms"] = cuda_ms(
+                                lambda: torch.autograd.grad(ol, (ql, kl, vl), doh,
+                                                            retain_graph=True))
+                        if full:
+                            entry["dq_library_ms"] = entry["bwd_library_ms"]
+                            entry["dkv_library_ms"] = entry["bwd_library_ms"]
                     for kname, (bms, by) in bounds(b, t, s, h, d, 2, rate).items():
-                        entry[f"{kname}_bound_ms"], entry[f"{kname}_bound_by"] = bms, by
+                        if kname in kns:
+                            entry[f"{kname}_bound_ms"], entry[f"{kname}_bound_by"] = bms, by
                     log(f"  {label} times (ms): " + " | ".join(
                         f"{kn} {entry[kn + '_ms']:.4f} plain {entry[kn + '_plain_ms']:.4f} "
                         f"lib {entry[kn + '_library_ms'] or float('nan'):.4f} bound "
                         f"{entry[kn + '_bound_ms']:.4f} ({entry[kn + '_bound_by']})"
                         for kn in timed))
                 results[(name, dtype, rate)] = entry
+                del pairs, res, o, lse
+            del q, k, v, do, a, bc, c, f32
+        torch.cuda.empty_cache()
 
         # the keep mask of the shape's (B*H, T, S) region, bit for bit
         region = (b * h, t, s)
@@ -417,6 +477,8 @@ def check_kernels(fa):
         if not same or abs(keep - (1 - RATE)) > 6 * sigma:
             raise AssertionError(f"{name} dropout mask: bit-exact {same}, keep {keep}")
         results[(name, "mask")] = entry
+        del mask, ref, sub
+        torch.cuda.empty_cache()
     return results
 
 
@@ -666,36 +728,43 @@ def expected_launches(C, split=False):
                         "dropout_mask": 0}, split)
 
 
-def served_path(model, fa, C, episodes=EPISODES, split=False):
-    """Phase 5 (and 10): the lockstep evaluator's order, one episode at a
-    time, in the merged or the split formulation."""
+def served_path(model, fa, C, episodes=EPISODES, split=False, chunk=1):
+    """Phase 5 (and 10): the interactive evaluator's order, in the merged or
+    the split formulation, over `episodes` seeded episodes in lockstep chunks
+    of `chunk` (1: one at a time): per chunk next_action at s=1..4 and then
+    predict, each one batched call. Returns the launch counts and, per chunk,
+    the next_action ms, the predict ms and the whole chunk's ms."""
     fa.reset_launches()
-    na_ms, pr_ms = [], []
-    for e in range(episodes):
-        frames = synthetic_frames(100 + e)
+    na_ms, pr_ms, chunk_ms = [], [], []
+    nc = model.config.MODEL.NUM_CLASSES + 1
+    for start in range(0, episodes, chunk):
+        frames = np.concatenate([synthetic_frames(100 + e) for e in range(start, start + chunk)])
+        torch.cuda.synchronize()
+        t_chunk = time.perf_counter()
         for s in range(1, C.NUM_FRAMES):
-            torch.cuda.synchronize()
             t0 = time.perf_counter()
-            a = int(model.next_action({"frames": frames[:, :s]}))
+            a = model.next_action({"frames": frames[:, :s]}).tolist()
             na_ms.append(1e3 * (time.perf_counter() - t0))
-            if not 0 <= a < C.NUM_ACTIONS:
-                raise AssertionError(f"action {a} out of range")
+            if len(a) != chunk or not all(0 <= x < C.NUM_ACTIONS for x in a):
+                raise AssertionError(f"actions {a}: not {chunk} in range")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         pred = model.predict({"frames": frames})
         torch.cuda.synchronize()
         pr_ms.append(1e3 * (time.perf_counter() - t0))
-        nc = model.config.MODEL.NUM_CLASSES + 1
-        want = {"pred_logits": (1, 1, C.NUM_QUERIES, nc), "pred_boxes": (1, 1, C.NUM_QUERIES, 4)}
+        chunk_ms.append(1e3 * (time.perf_counter() - t_chunk))
+        want = {"pred_logits": (chunk, 1, C.NUM_QUERIES, nc),
+                "pred_boxes": (chunk, 1, C.NUM_QUERIES, 4)}
         for key, shape in want.items():
             if tuple(pred[key].shape) != shape or not torch.isfinite(pred[key]).all():
                 raise AssertionError(f"{key}: shape {tuple(pred[key].shape)} or non-finite")
     counts = dict(fa.launches)
-    want = {k: n * episodes for k, n in expected_launches(C, split).items()}
-    log(f"  launches on the served path: {counts} (expected {want})")
+    want = {k: n * (episodes // chunk) for k, n in expected_launches(C, split).items()}
+    log(f"  launches on the served path ({episodes} episodes in chunks of {chunk}): {counts} "
+        f"(expected {want}: {episodes // chunk} x one chunk's, which is one episode's)")
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want}")
-    return counts, na_ms, pr_ms
+    return counts, na_ms, pr_ms, chunk_ms
 
 
 def profile_run(fn):
@@ -707,7 +776,8 @@ def profile_run(fn):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -736,6 +806,22 @@ def profile_run(fn):
     for gname, keys in groups.items():
         hits = [v for n, v in by_name.items() if any(k in n.lower() for k in keys)]
         log(f"  {gname}: {sum(v[1] for v in hits):.2f} ms in {sum(v[0] for v in hits)} launches")
+    # the fast weights' grouped convolutions (groups = episodes): the kernels
+    # the profiler attributes to a convolution op whose input has more
+    # channels than its weight takes (forward: input, weight; backward:
+    # grad_output, input, weight)
+    grouped = [0, 0.0]
+    for e in prof.events():
+        if "convolution" not in e.name or not getattr(e, "kernels", None):
+            continue
+        shapes = [sh for sh in (e.input_shapes or []) if len(sh) == 4]
+        x, w = ((shapes[1:3] if "backward" in e.name else shapes[:2]) + [None, None])[:2]
+        if x and w and x[1] != w[1]:
+            grouped[0] += len(e.kernels)
+            grouped[1] += sum(k.duration for k in e.kernels) / 1e3
+    log(f"  fast-weight grouped convolutions (groups = episodes): {grouped[1]:.2f} ms in "
+        f"{grouped[0]} launches" + ("" if grouped[0] else
+                                    " (none attributed: not measured where the path has some)"))
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]:
         log(f"  {t:8.3f} ms {n:5d}x {name[:110]}")
 
@@ -757,6 +843,13 @@ def synthetic_batch(seed, episodes, num_classes, C, size=300):
         "valid": valid,
         "episode_uid": np.arange(episodes, dtype=np.int64),
     }
+
+
+def perturbed(batch, seed=2):
+    """`batch` with its frames moved by 1e-6 relative, seeded noise: the
+    change against which the fp32 checks measure a problem's sensitivity."""
+    noise = np.random.RandomState(seed).randn(*batch["frames"].shape).astype(np.float32)
+    return dict(batch, frames=batch["frames"] * (1 + 1e-6 * noise))
 
 
 def second_order_probe(model, frames):
@@ -789,6 +882,14 @@ def second_order_probe(model, frames):
 # relative, above 10x the sensitivity of a well-conditioned model (the ViT
 # family: 5e-7 for a 1e-6 relative change of the frames)
 GRAD_FLOOR = 1e-4
+BATCHED = 2  # episodes of phases 4b and 7b (TRAINER.INNER_BATCH 2)
+# noise seeds of the CPU's 1e-6 relative changes of the frames, against
+# which the card-vs-CPU train checks (phases 7, 7b, 12a) measure a problem's
+# sensitivity: a gradient takes the first (its norm of change sums over all
+# its entries), a loss the largest change over all four (a loss is one
+# number, and one change of it can be near zero by chance where the
+# matching or a ReLU's side jumps). The card never sets its own tolerance.
+SENS_SEEDS = (2, 3, 4, 5)
 
 
 def train_parity(config_dict, Task, Config, weights, C, probe=True):
@@ -796,8 +897,9 @@ def train_parity(config_dict, Task, Config, weights, C, probe=True):
     the card against the CPU. The keep bits are a hash of seeds drawn from one
     CPU generator, so both devices drop the same elements. As in phase 4,
     the gradients are held against the CPU's own change when the frames move
-    by 1e-6 relative, and so are the losses, which go through the
-    fast weights; the count-like metrics are printed. The full step's
+    by 1e-6 relative, and so are the losses, which go through the fast
+    weights, each over SENS_SEEDS (PERF.md §6). The count-like metrics are
+    printed. The full step's
     gradient is discontinuous at that scale (clip boundaries, matching,
     ReLU masks), so with `probe` the second-order term is also held alone
     (`second_order_probe`). Every gradient group the task has is held, to
@@ -806,14 +908,13 @@ def train_parity(config_dict, Task, Config, weights, C, probe=True):
     cfg["MODEL"]["DTYPE"] = "float32"
     batch = synthetic_batch(7, 1, cfg["MODEL"]["NUM_CLASSES"], C,
                             int(cfg["MODEL"].get("TEST_RESOLUTION", 300)))
-    noise = np.random.RandomState(2).randn(*batch["frames"].shape).astype(np.float32)
-    moved = dict(batch, frames=batch["frames"] * (1 + 1e-6 * noise))
-    res = {}
+    res, first = {}, f"moved{SENS_SEEDS[0]}"
     for dev in ("cpu", "cuda"):
         model = Task(Config(cfg), device=dev).load_weights(weights)
-        runs = [("base", batch)] + ([("moved", moved)] if dev == "cpu" else [])
+        runs = [("base", batch)] + ([(f"moved{s}", perturbed(batch, s)) for s in SENS_SEEDS]
+                                    if dev == "cpu" else [])
         for key, b in runs:
-            if probe:
+            if probe and key in ("base", first):
                 res[(dev, key, "probe")] = second_order_probe(model, b["frames"][0:1])
             t0 = time.perf_counter()
             g, m, _ = model.grads_and_metrics(b, torch.Generator().manual_seed(11),
@@ -825,12 +926,12 @@ def train_parity(config_dict, Task, Config, weights, C, probe=True):
             res[(dev, key)] = ({grp: {n: x.cpu() for n, x in d.items()} for grp, d in g.items()},
                                {k: float(v) for k, v in m.items()})
         del model
-    (gc, mc), (gr, mr), (gm, mm) = res[("cuda", "base")], res[("cpu", "base")], res[("cpu", "moved")]
+    (gc, mc), (gr, mr), gm = res[("cuda", "base")], res[("cpu", "base")], res[("cpu", first)][0]
     norm = lambda d: sum(torch.sum(x.double() ** 2) for x in d.values()).sqrt().item()
     held = [(f"{grp} gradient", gc[grp], gr[grp], gm[grp]) for grp in gr]
     if probe:
         held.append(("second-order probe (fusion)", *(res[(dev, key, "probe")] for dev, key in (
-            ("cuda", "base"), ("cpu", "base"), ("cpu", "moved")))))
+            ("cuda", "base"), ("cpu", "base"), ("cpu", first)))))
     for label, c, r, mv in held:
         err = norm({n: c[n] - r[n] for n in r}) / norm(r)
         sens = norm({n: mv[n] - r[n] for n in r}) / norm(r)
@@ -842,14 +943,98 @@ def train_parity(config_dict, Task, Config, weights, C, probe=True):
         if not err <= tol:
             raise AssertionError(f"train step {label}: {err} > {tol}")
     for k in mr:
-        err, sens = abs(mc[k] - mr[k]), abs(mm[k] - mr[k])
+        changes = [abs(res[("cpu", f"moved{s}")][1][k] - mr[k]) for s in SENS_SEEDS]
+        err, sens = abs(mc[k] - mr[k]), max(changes)
         tol = max(1e-4 * abs(mr[k]), 10 * sens)
         held = "loss" in k or k == "policy_reward"
         log(f"  fp32 train step metric {k}: card {mc[k]:.6f} CPU {mr[k]:.6f} err={err:.3e} "
-            + (f"tol={tol:.3e} (max of 1e-4 x |CPU| and 10 x the CPU's own change)" if held
+            + (f"tol={tol:.3e} (max of 1e-4 x |CPU| and 10 x the CPU's largest own change, "
+               f"{sens:.3e}, of {', '.join(f'{c:.3e}' for c in changes)})" if held
                else "(count-like, printed only)"))
         if held and not err <= tol:
             raise AssertionError(f"train step metric {k}: {err} > {tol}")
+
+
+def batched_parity(cfg, Task, Config, weights, C, what):
+    """Phases 4b and 7b: episode batching in fp32 at PARITY_DEPTH with
+    dropout off, on `weights` (calibrated at that depth). `what` is
+    "predict" (one predict of BATCHED episodes in one call) or "train" (a
+    train step of BATCHED episodes at TRAINER.INNER_BATCH BATCHED, one
+    microbatch, frame indices fixed). Each is held (a) on the card against
+    the same episodes one at a time (INNER_BATCH 1) and (b) against the
+    CPU's batched call. Predictions are held to 0.1 x the adaptation's own
+    effect (phase 4's rule); gradients to 10 x the reference's own change
+    when the frames move by 1e-6 relative, no less than GRAD_FLOOR, and
+    losses to the larger of 1e-4 relative and 10 x that change (phase 7's
+    rule): against the card one at a time, the card's batched change; against
+    the CPU, the CPU's over SENS_SEEDS."""
+    n = BATCHED
+    batch = synthetic_batch(7, n, cfg["MODEL"]["NUM_CLASSES"], C,
+                            int(cfg["MODEL"].get("TEST_RESOLUTION", 300)))
+    cpu = lambda d: {k: v.cpu() for k, v in d.items()}
+
+    def run(dev, inner_batch, b):
+        c = json.loads(json.dumps(cfg))
+        c["TRAINER"]["INNER_BATCH"] = inner_batch
+        model = Task(Config(c), device=dev).load_weights(weights)
+        t0 = time.perf_counter()
+        if what == "predict":
+            parts = ([{"frames": b["frames"]}] if inner_batch > 1 else
+                     [{"frames": b["frames"][i:i + 1]} for i in range(n)])
+            preds = [model.predict(p) for p in parts]
+            out = {"pred": {k: torch.cat([p[k] for p in preds]).cpu() for k in preds[0]}}
+            with torch.no_grad():
+                before = model.detr_apply(None, model.frames(b)[:, 0])
+            out["before"] = {k: before[k][:, None].cpu() for k in out["pred"]}
+        else:
+            grads, m, _ = model.grads_and_metrics(b, None, model.init_path_state(8), train=False,
+                                                  frame_index=[2, 3][:n])
+            out = {"grads": {grp: cpu(d) for grp, d in grads.items()},
+                   "m": {k: float(v) for k, v in m.items()}}
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        log(f"  ({what}) {dev} INNER_BATCH {inner_batch}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    ref = run("cuda", n, batch)
+    norm = lambda d: sum(torch.sum(x.double() ** 2) for x in d.values()).sqrt().item()
+    cpu_ref = run("cpu", n, batch)
+    for label, other, base, moved in (
+            ("card batched vs card one at a time", run("cuda", 1, batch), ref,
+             what == "train" and [run("cuda", n, perturbed(batch))]),
+            ("card batched vs CPU batched", cpu_ref, cpu_ref,
+             what == "train" and [run("cpu", n, perturbed(batch, s)) for s in SENS_SEEDS])):
+        if what == "predict":
+            for key in ("pred_logits", "pred_boxes"):
+                effect = (other["pred"][key] - other["before"][key]).abs().max().item()
+                err = (ref["pred"][key] - other["pred"][key]).abs().max().item()
+                log(f"  fp32 {label}: predict of {n} episodes {key} max_abs_err={err:.3e} "
+                    f"tol={0.1 * effect:.3e} (0.1 x the adaptation's own effect, {effect:.3e})")
+                if not err <= 0.1 * effect:
+                    raise AssertionError(f"batched predict {label} {key}: {err} > {0.1 * effect}")
+            continue
+        whose = "card's" if base is ref else "CPU's"
+        for grp in ref["grads"]:
+            r, o, b, mv = (ref["grads"][grp], other["grads"][grp], base["grads"][grp],
+                           moved[0]["grads"][grp])
+            err = norm({k: r[k] - o[k] for k in r}) / norm(o)
+            sens = norm({k: mv[k] - b[k] for k in b}) / norm(b)
+            tol = max(10 * sens, GRAD_FLOOR)
+            log(f"  fp32 {label}: train step of {n} episodes, {grp} gradient "
+                f"||a - b|| / ||b|| = {err:.3e} tol={tol:.3e} (max of 10 x the {whose} own "
+                f"change, {sens:.3e}, and {GRAD_FLOOR:g})")
+            if not err <= tol:
+                raise AssertionError(f"batched train step {label} {grp}: {err} > {tol}")
+        for k, v in other["m"].items():
+            if "loss" in k or k == "policy_reward":
+                changes = [abs(mv["m"][k] - base["m"][k]) for mv in moved]
+                err, sens = abs(ref["m"][k] - v), max(changes)
+                tol = max(1e-4 * abs(v), 10 * sens)
+                log(f"  fp32 {label}: metric {k} {ref['m'][k]:.6f} vs {v:.6f} err={err:.3e} "
+                    f"tol={tol:.3e} (max of 1e-4 x |b| and 10 x the {whose} largest own "
+                    f"change, of {', '.join(f'{c:.3e}' for c in changes)})")
+                if not err <= tol:
+                    raise AssertionError(f"batched train step {label} metric {k}: {err} > {tol}")
 
 
 def _depths(m):
@@ -860,10 +1045,12 @@ def _depths(m):
             m.TYPE == "interactron_random")
 
 
-def expected_train_launches(m, split=False, episodes=1):
-    """Kernel launches of one train step of `episodes` episodes, read from
-    the gates of ops/attention.py (hd>=32, s>=256, t>=128). The backbone's
-    and the DETR encoder's attentions (the ViT's 12 at t=s=361, the
+def expected_train_launches(m, split=False, microbatches=1):
+    """Kernel launches of one train step of `microbatches` microbatches of
+    TRAINER.INNER_BATCH episodes (`detr`: of the step's one pass), read from
+    the gates of ops/attention.py (hd>=32, s>=256, t>=128). A microbatch is
+    one batched pass over its episodes, so its launches do not depend on how
+    many it holds. The backbone's and the DETR encoder's attentions (the ViT's 12 at t=s=361, the
     encoder's 6) pass the gates; the decoder's 50 queries stay dense. A
     fusion layer has one attention past the gates: FusionGPT's block (its
     dropout fused), FusionXAttn's cross-attention (255 queries over 1805
@@ -881,11 +1068,11 @@ def expected_train_launches(m, split=False, episodes=1):
         backbone and encoder. Masks: per DETR pass 3 an encoder layer, 4 + 2
         attention masks a decoder layer; per fusion pass FusionGPT's
         embedding's and 2 a block, or FusionXAttn's 4 + 1 a layer.
-      * detr_multiframe: per episode one detector pass (encoder without
+      * detr_multiframe: per microbatch one detector pass (encoder without
         dropout, decoder with it), one fusion pass, their first-order
         backward.
       * detr: the step's b*s frames in one detector pass and its backward,
-        whatever `episodes` is.
+        whatever `microbatches` is.
     The ViT's dropout rate is 0: it draws no mask."""
     enc, dec, layers, vit, xattn = _depths(m)
     first = vit + enc
@@ -902,13 +1089,14 @@ def expected_train_launches(m, split=False, episodes=1):
         per = {"flash_fwd": 4 * inner + 2 * first - vit,
                "flash_bwd": 2 * inner + 2 * first - vit,
                "flash_so": inner, "dropout_mask": 3 * detr_masks + fusion_masks}
-    return _formulated({k: v * episodes for k, v in per.items()}, split)
+    return _formulated({k: v * microbatches for k, v in per.items()}, split)
 
 
 def expected_predict_launches(m):
-    """Kernel launches of one predict: the adaptive tasks' inner forward
-    and first-order backward, then the frame-0 detect; the baselines' one
-    forward of the detector (and the fusion)."""
+    """Kernel launches of one predict of any number of episodes (one batched
+    pass): the adaptive tasks' inner forward and first-order backward, then
+    the frame-0 detect; the baselines' one forward of the detector (and the
+    fusion)."""
     enc, _, layers, vit, _ = _depths(m)
     first = vit + enc
     if m.TYPE == "detr":
@@ -921,9 +1109,10 @@ def expected_predict_launches(m):
 
 
 def expected_episode_launches(m, evaluator, num_queries, num_frames):
-    """Kernel launches of one evaluated episode: predict, after four
-    next_action calls at s = 1..4 under the interactive evaluator (the
-    fusion's last block passes the gates from s*50 + 5 >= 128 queries)."""
+    """Kernel launches of one evaluated episode, or under the interactive
+    evaluator of one lockstep chunk: predict, after four next_action calls
+    at s = 1..4 under the interactive evaluator (the fusion's last block
+    passes the gates from s*50 + 5 >= 128 queries)."""
     counts = expected_predict_launches(m)
     if evaluator == "interactive_evaluator":
         enc, _, layers, vit, _ = _depths(m)
@@ -934,37 +1123,60 @@ def expected_episode_launches(m, evaluator, num_queries, num_frames):
 
 def train_bf16(model, fa, C, Trainer, steps=3, episodes=4, split=False):
     """Phase 8 (and 10): `steps` optimizer steps of `episodes` episodes in
-    bf16 with dropout on, in the merged or the split formulation. Returns
-    (launch counts, ms per step, the trainer, the profile batch)."""
+    bf16 with dropout on, in the merged or the split formulation, at the
+    config's TRAINER.INNER_BATCH; then one step at INNER_BATCH 1, the
+    serial path. Each with its launch counts. Returns (launch counts of the
+    batched steps, ms per batched step, the trainer, the profile batch,
+    the serial step's ms)."""
     cfg = model.config
     trainer = Trainer(model, cfg, path_rows=64)
     gen = torch.Generator().manual_seed(0)
-    batches = [synthetic_batch(20 + i, episodes, cfg.MODEL.NUM_CLASSES, C) for i in range(steps)]
+    batches = [synthetic_batch(20 + i, episodes, cfg.MODEL.NUM_CLASSES, C)
+               for i in range(steps + 1)]
     before = {grp: [p.detach().clone() for p in mod.parameters()]
               for grp, mod in (("detector", model.detector), ("fusion", model.fusion))}
-    fa.reset_launches()
-    step_ms = []
-    for i, batch in enumerate(batches):
+    inner = model.inner_batch
+
+    def step(i, batch):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         metrics = {k: float(v) for k, v in trainer.train_step(batch, gen).items()}
         torch.cuda.synchronize()
-        step_ms.append(1e3 * (time.perf_counter() - t0))
-        log(f"  step {i}: {step_ms[-1]:.1f} ms, total_loss {metrics['total_loss']:.4f}, "
-            f"grad_norm {metrics['grad_norm']:.4e}, policy_reward {metrics['policy_reward']:.4f}")
+        ms = 1e3 * (time.perf_counter() - t0)
+        log(f"  step {i} (INNER_BATCH {model.inner_batch}): {ms:.1f} ms, total_loss "
+            f"{metrics['total_loss']:.4f}, grad_norm {metrics['grad_norm']:.4e}, "
+            f"policy_reward {metrics['policy_reward']:.4f}")
         if not all(np.isfinite(v) for v in metrics.values()):
             raise AssertionError(f"non-finite metrics at step {i}: {metrics}")
+        return ms
+
+    fa.reset_launches()
+    step_ms = [step(i, batch) for i, batch in enumerate(batches[:steps])]
     counts = dict(fa.launches)
-    want = {k: n * steps for k, n in expected_train_launches(cfg.MODEL, split, episodes).items()}
-    log(f"  launches on the train path: {counts} (expected {want})")
+    micro = len(model.microbatches(episodes))
+    want = {k: n * steps for k, n in expected_train_launches(cfg.MODEL, split, micro).items()}
+    log(f"  launches of the {steps} steps at INNER_BATCH {inner} ({micro} microbatch(es) of "
+        f"{episodes // micro} a step): {counts} (expected {want})")
     if counts != want:
         raise AssertionError(f"train launch counts {counts} != {want}")
+    model.inner_batch = 1
+    try:
+        fa.reset_launches()
+        serial_ms = step(steps, batches[steps])
+        serial = dict(fa.launches)
+    finally:
+        model.inner_batch = inner
+    want = expected_train_launches(cfg.MODEL, split, episodes)
+    log(f"  launches of one step at INNER_BATCH 1 ({episodes} microbatches of 1): {serial} "
+        f"(expected {want})")
+    if serial != want:
+        raise AssertionError(f"serial train launch counts {serial} != {want}")
     for grp, mod in (("detector", model.detector), ("fusion", model.fusion)):
         moved = sum(int(not torch.equal(p, q)) for p, q in zip(mod.parameters(), before[grp]))
         log(f"  {grp}: {moved} of {len(before[grp])} parameter tensors moved")
         if moved == 0:
             raise AssertionError(f"no {grp} parameter moved")
-    return counts, step_ms, trainer, batches[0]
+    return counts, step_ms, trainer, batches[0], serial_ms
 
 
 SPLIT = {"FLASH_BWD": "split", "SO_MERGED": "0"}
@@ -996,8 +1208,6 @@ def split_parity(config_dict, Task, Config, weights, C, fa):
     cfg = json.loads(json.dumps(config_dict))
     cfg["MODEL"]["DTYPE"] = "float32"
     batch = synthetic_batch(7, 1, cfg["MODEL"]["NUM_CLASSES"], C)
-    noise = np.random.RandomState(2).randn(*batch["frames"].shape).astype(np.float32)
-    moved = dict(batch, frames=batch["frames"] * (1 + 1e-6 * noise))
     model = Task(Config(cfg), device="cuda").load_weights(weights)
     cpu = lambda d: {n: x.cpu() for n, x in d.items()}
 
@@ -1014,7 +1224,8 @@ def split_parity(config_dict, Task, Config, weights, C, fa):
 
     fa_launches = {}
     res = {}
-    for key, b, env in (("merged", batch, {}), ("moved", moved, {}), ("split", batch, SPLIT)):
+    for key, b, env in (("merged", batch, {}), ("moved", perturbed(batch), {}),
+                        ("split", batch, SPLIT)):
         fa.reset_launches()
         t0 = time.perf_counter()
         with switches(**env):
@@ -1131,6 +1342,171 @@ def disk_config(cfg_dict, tree, out, cuts):
     return d
 
 
+# the frame-0 predictions phases 11c and 12c hold, lockstep against serial
+PRED_KEYS = ("pred_logits", "pred_boxes")
+
+
+def lockstep_records(d, Task, Config, weights, card):
+    """Phases 11c and 12c: the interactive evaluator of the disk config `d`
+    in fp32 on the card, in lockstep (the config's ROLLOUT_BATCH: one chunk
+    of the tree's episodes) against the serial rollout (ROLLOUT_BATCH 1) on
+    the same `weights`. Each episode's frame-0 predictions are held to 0.1 x
+    the adaptation's own effect on them (the serial prediction against the
+    unadapted detector's on the same frame: phase 4b's rule), and the
+    records must agree in order, image, type and category, and TP/FP/FN;
+    their scores, IoUs and boxes are printed. A planted fault, the lockstep
+    run with each episode's fast weights handed to the next episode of its
+    chunk, must break that hold (on the logits or the boxes): else the
+    check could not see a wrong pairing of episodes and fast weights."""
+    from interactron_tpu_torch.meta import split_inner
+    from interactron_tpu_torch.utils.config import build_evaluator
+
+    cfg = json.loads(json.dumps(d))
+    cfg["MODEL"]["DTYPE"] = "float32"
+    task = Task(Config(cfg), device="cuda").load_weights(weights)
+    adapted = set(split_inner(dict(task.detector.named_parameters()))[0])
+    adapt = task.adapt
+
+    def misrouted(episodes):
+        fast, g, prefix = adapt(episodes)
+        return {k: v.roll(1, 0) if k in adapted else v for k, v in fast.items()}, g, prefix
+
+    def evaluate(rb, planted=False):
+        c = json.loads(json.dumps(cfg))
+        if rb is not None:
+            c["EVALUATOR"]["ROLLOUT_BATCH"] = rb
+        ev = build_evaluator(task, Config(c))
+        recs, preds, score = [], [], ev._score_episode
+
+        def capture(batch, p):
+            preds.append((batch, {k: p[k][0, 0].float().cpu() for k in PRED_KEYS}))
+            dets = score(batch, p)
+            recs.extend(dets)
+            return dets
+
+        ev._score_episode = capture
+        if planted:
+            task.adapt = misrouted
+        try:
+            t0 = time.perf_counter()
+            out = ev.evaluate(save_results=False, trained=True)
+            torch.cuda.synchronize()
+        finally:
+            task.__dict__.pop("adapt", None)
+        return recs, preds, out, time.perf_counter() - t0, ev.chunk
+
+    (lock, lock_p, lock_out, lock_s, chunk), (serial, serial_p, serial_out, serial_s, _) = (
+        evaluate(None), evaluate(1))
+    planted_p = evaluate(None, planted=True)[1]
+    with torch.no_grad():
+        before = [task.detr_apply(None, task.frames(b)[:, 0]) for b, _ in serial_p]
+    effect = {k: max((p[k] - o[k][0].float().cpu()).abs().max().item()
+                     for (_, p), o in zip(serial_p, before)) for k in PRED_KEYS}
+    diff = lambda ps: {k: max((a[k] - b[k]).abs().max().item()
+                              for (_, a), (_, b) in zip(ps, serial_p)) for k in PRED_KEYS}
+    sound, planted = diff(lock_p), diff(planted_p)
+    same = len(lock) == len(serial) and all(
+        a[k] == b[k] for a, b in zip(lock, serial) for k in ("img", "type", "pred_cat"))
+    errs = {k: max((float(np.max(np.abs(np.asarray(a[k]) - np.asarray(b[k]))))
+                    for a, b in zip(lock, serial)), default=0.0)
+            for k in ("pred_score", "iou", "box")}
+    for k in PRED_KEYS:
+        log(f"  fp32 lockstep (chunks of {chunk}, {lock_s:.2f} s) vs serial ({serial_s:.2f} s), "
+            f"{len(serial_p)} episodes: {k} max_abs_err={sound[k]:.3e} tol={0.1 * effect[k]:.3e} "
+            f"(0.1 x the adaptation's own effect, {effect[k]:.3e}); planted fault (each "
+            f"episode's fast weights given to the next): {planted[k]:.3e}")
+    log(f"  records: {len(lock)} vs {len(serial)}, image, type and category equal: {same}; "
+        "max abs diff " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f"; TP/FP/FN {lock_out[2:]} vs {serial_out[2:]}; card: {card}")
+    if not same or lock_out[2:] != serial_out[2:]:
+        raise AssertionError(f"lockstep records differ from serial: same {same}, "
+                             f"{lock_out[2:]} vs {serial_out[2:]}")
+    for k in PRED_KEYS:
+        if not sound[k] <= 0.1 * effect[k]:
+            raise AssertionError(f"lockstep {k} vs serial: {sound[k]} > {0.1 * effect[k]}")
+    if not any(planted[k] > 0.1 * effect[k] for k in PRED_KEYS):
+        raise AssertionError(f"the planted wrong pairing passes the hold: {planted} vs 0.1 x "
+                             f"{effect}")
+
+
+def from_scratch_step(cfg_dict, tree, card):
+    """Phase 11b's premise, printed: the training entry point's own weights
+    (`init(42)`: every FrozenBatchNorm's statistics the identity, and no
+    pretrained backbone in the repo) take one bf16 train step on the tree's
+    first 4 episodes, at the config's INNER_BATCH and at 1, and the gradient
+    leaves that are not finite are counted by group. Where some are not,
+    the first optimizer step writes them into the weights, and the next
+    step's matching raises (scipy's assignment of a NaN cost), which is why
+    11b resumes from phase 11's calibrated state."""
+    from interactron_tpu_torch.data.episode_dataset import EpisodeDataset, EpisodeLoader
+    from interactron_tpu_torch.tasks import InteractronTask
+    from interactron_tpu_torch.utils.config import Config
+
+    batch = None
+    for ib in (int(cfg_dict["TRAINER"]["INNER_BATCH"]), 1):
+        c = json.loads(json.dumps(cfg_dict))
+        c["TRAINER"]["INNER_BATCH"] = ib
+        task = InteractronTask(Config(c), device="cuda").init(42)
+        if batch is None:  # the test transform, at the trainer's sizes
+            ds = EpisodeDataset(*tree, "train", resolution=task.img_size,
+                                max_boxes=task.max_boxes)
+            batch = next(iter(EpisodeLoader(ds, 4, shuffle=False, num_workers=0)))
+        g, m, _ = task.grads_and_metrics(batch, torch.Generator().manual_seed(0),
+                                         task.init_path_state(8), train=True)
+        bad = {grp: sum(int(not torch.isfinite(x).all()) for x in d.values())
+               for grp, d in g.items()}
+        log(f"  from the entry point's seed-42 weights, INNER_BATCH {ib}: total_loss "
+            f"{float(m['total_loss']):.4f}; gradient leaves not finite {bad} of "
+            f"{ {grp: len(d) for grp, d in g.items()} }; card: {card}")
+        del task, g
+
+
+def train_entry_point(cfg_path, tree, card, resume_from):
+    """Phase 11b: `python -m interactron_tpu_torch.train --config_file <yaml>
+    --device cuda` in a child process on the config at `cfg_path` with only
+    DATASET, the epoch and batch cuts, the output directories and
+    TRAINER.RESUME_FROM changed: the config's INNER_BATCH and ROLLOUT_BATCH,
+    the epoch-0 test epoch and evaluation, one train epoch, a test epoch and
+    evaluation. It resumes from `resume_from` (phase 11's state after epoch
+    1, its weights calibrated on the tree), because the entry point's own
+    seed-42 weights do not train in bf16 (`from_scratch_step`). Its
+    metrics.jsonl must hold steps 0 and 1, finite."""
+    import yaml
+
+    from interactron_tpu_torch.utils.config import get_config
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_entry_") as tmp:
+        d = disk_config(get_config(cfg_path).to_dict(), tree, tmp, {
+            ("TRAINER", "BATCH_SIZE"): 4, ("TRAINER", "MAX_EPOCHS"): 3,
+            ("TRAINER", "SAVE_WINDOW"): 1, ("TRAINER", "RESUME_FROM"): resume_from})
+        path = os.path.join(tmp, "config.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(d, f)
+        torch.cuda.empty_cache()
+        cmd = [sys.executable, "-m", "interactron_tpu_torch.train", "--config_file", path,
+               "--device", "cuda"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                              capture_output=True, text=True, timeout=900)
+        secs = time.perf_counter() - t0
+        for line in proc.stdout.splitlines()[-6:]:
+            log(f"    | {line}")
+        if proc.returncode != 0:
+            log(proc.stderr[-4000:])
+            raise AssertionError(f"{' '.join(cmd[1:4])} exited {proc.returncode}")
+        (run_dir,) = os.listdir(d["TRAINER"]["OUTPUT_DIRECTORY"])
+        recs = _finite_records(os.path.join(d["TRAINER"]["OUTPUT_DIRECTORY"], run_dir))
+        if [r["step"] for r in recs] != [0, 1]:
+            raise AssertionError(f"entry point logged steps {[r['step'] for r in recs]}")
+        log(f"  {' '.join(cmd[1:4])} {os.path.basename(cfg_path)} --device cuda: exit 0 in "
+            f"{secs:.1f} s (process start and the resume included), TRAINER.INNER_BATCH "
+            f"{d['TRAINER']['INNER_BATCH']}, EVALUATOR.ROLLOUT_BATCH "
+            f"{d['EVALUATOR'].get('ROLLOUT_BATCH', 'unset (10)')}; step 1: " + ", ".join(
+                f"{k} {recs[1][k]:.5g}" for k in ("Train/total_loss", "Test/total_loss",
+                                                  "Test/mAP_50") if k in recs[1])
+            + f"; card: {card}")
+
+
 def train_from_disk(cfg_dict, fa, C, card, tree):
     """Phase 11: the user's path from disk at full width, over `tree`
     (`make_tree`): `build_model`, `build_evaluator` and `build_trainer` run
@@ -1160,8 +1536,7 @@ def train_from_disk(cfg_dict, fa, C, card, tree):
     with tempfile.TemporaryDirectory(prefix="chip_smoke_disk_") as tmp:
         d = disk_config(cfg_dict, tree, tmp, {
             ("TRAINER", "BATCH_SIZE"): 4, ("TRAINER", "MAX_EPOCHS"): 2,
-            ("TRAINER", "SAVE_WINDOW"): 1, ("EVALUATOR", "TYPE"): "interactive_evaluator",
-            ("EVALUATOR", "ROLLOUT_BATCH"): 1})
+            ("TRAINER", "SAVE_WINDOW"): 1, ("EVALUATOR", "TYPE"): "interactive_evaluator"})
         cfg = Config(d)
         workers = int(d["TRAINER"]["NUM_WORKERS"])
         calib = EpisodeDataset(img_root, ann, "test")
@@ -1206,10 +1581,12 @@ def train_from_disk(cfg_dict, fa, C, card, tree):
             log(f"  metrics.jsonl step {r['step']}: " + ", ".join(
                 f"{k} {v:.5g}" for k, v in r.items() if k not in ("step", "time")))
         n_train = len(steps) * 4
+        micro = len(task.microbatches(4))
         want = {k: v * len(steps)
-                for k, v in expected_train_launches(cfg.MODEL, episodes=4).items()}
+                for k, v in expected_train_launches(cfg.MODEL, microbatches=micro).items()}
         log(f"  launches of the {len(steps)} train steps: {step_launches} (expected {want}: "
-            f"phase 8's count an episode x {n_train} episodes)")
+            f"phase 8's count a microbatch x {micro} microbatch(es) of INNER_BATCH "
+            f"{task.inner_batch} a step)")
         if any(step_launches.get(k, 0) != want.get(k, 0) for k in {*step_launches, *want}):
             raise AssertionError(f"train-loop launches {step_launches} != {want}")
         (train_s,) = epochs["train"]
@@ -1219,7 +1596,8 @@ def train_from_disk(cfg_dict, fa, C, card, tree):
         log(f"  test epochs: {', '.join(f'{s:.2f}' for s in epochs['test'])} s for "
             f"{DISK_EPISODES} episodes each")
         n_eval = len(evaluator.dataset)
-        log(f"  evaluation (serial closed loop, AP): {n_eval / np.mean(evals):.3f} episodes/s "
+        log(f"  evaluation (closed loop in lockstep chunks of {evaluator.chunk}, AP): "
+            f"{n_eval / np.mean(evals):.3f} episodes/s "
             f"(mean of {len(evals)} runs of {n_eval} episodes, "
             f"{', '.join(f'{s:.2f}' for s in evals)} s); host scoring "
             f"{1e3 * np.mean(scores):.2f} ms an episode (mean of {len(scores)}), "
@@ -1282,14 +1660,36 @@ def train_from_disk(cfg_dict, fa, C, card, tree):
                                  f"{trainer2.tokens}")
         log(f"  resumed at epoch 2 and ran it in {time.perf_counter() - t0:.1f} s; tokens "
             f"{tokens} -> {trainer2.tokens}")
+        del trainer2, task2
+        log("  (b) the training entry point on configs/interactron.yaml")
+        from_scratch_step(cfg_dict, tree, card)
+        train_entry_point("configs/interactron.yaml", tree, card, last)
+        log("  (c) fp32 lockstep vs serial evaluation records")
+        lockstep_records(d, InteractronTask, Config, weights, card)
     return counts
 
 
 # phase 12's configurations, and the depth of its fp32 card-vs-CPU checks
-# (the CPU's share of the smoke's time; the ViT keeps its 12 layers)
+# (the CPU's share of the smoke's time)
 OTHER_CONFIGS = ("interactron_random", "single_frame_baseline", "multi_frame_baseline",
                  "interactron_scaled")
 PARITY_DEPTH = {"NUM_ENCODER_LAYERS": 2, "NUM_DECODER_LAYERS": 2, "NUM_LAYERS": 2}
+# and of the ViT-B/16 backbone there (12 layers in the model): the fp32
+# train check's CPU runs at 12 took 141 s of the smoke's time
+PARITY_VIT_LAYERS = 2
+
+
+@contextlib.contextmanager
+def vit_depth(layers):
+    """Build ViT backbones with `layers` blocks inside the context."""
+    from interactron_tpu_torch.models import detr, vit
+
+    full = detr.ViT
+    detr.ViT = lambda **kw: vit.ViT(num_layers=layers, **kw)
+    try:
+        yield
+    finally:
+        detr.ViT = full
 
 
 def predict_parity(config_dict, Task, Config, weights):
@@ -1353,28 +1753,32 @@ def other_configs(fa, C, card, tree):
         pcfg = json.loads(json.dumps(cfg_dict))
         pcfg["MODEL"].update(PARITY_DEPTH)
         log(f"  (a) fp32 card vs CPU at depth {PARITY_DEPTH} (ViT layers "
-            f"{12 if m['BACKBONE'] == 'vit_b16' else 0})")
-        pw = calibrated_weights(pcfg, Task, Config, synthetic_frames(0, size=size)[0], "cuda")
-        if hasattr(Task, "adapt"):
-            full_width_parity(pcfg, Task, Config, pw)
-        else:
-            predict_parity(pcfg, Task, Config, pw)
-        # the adaptive families' second-order term alone, as phase 7 holds it:
-        # their full step's gradient jumps under fp32 noise (matching, clips)
-        train_parity(pcfg, Task, Config, pw, C, probe=hasattr(Task, "adapt"))
+            f"{PARITY_VIT_LAYERS if m['BACKBONE'] == 'vit_b16' else 0})")
+        with vit_depth(PARITY_VIT_LAYERS):
+            pw = calibrated_weights(pcfg, Task, Config, synthetic_frames(0, size=size)[0],
+                                    "cuda")
+            if hasattr(Task, "adapt"):
+                full_width_parity(pcfg, Task, Config, pw)
+            else:
+                predict_parity(pcfg, Task, Config, pw)
+            # the adaptive families' second-order term alone, as phase 7 holds
+            # it: their full step's gradient jumps under fp32 noise (matching,
+            # clips)
+            train_parity(pcfg, Task, Config, pw, C, probe=hasattr(Task, "adapt"))
         del pw
         log(f"  (a) took {time.perf_counter() - t0:.1f} s")
 
         with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{name}_") as tmp:
-            cuts = {("TRAINER", "BATCH_SIZE"): 4, ("TRAINER", "MAX_EPOCHS"): 2,
-                    ("TRAINER", "SAVE_WINDOW"): 1}
-            if cfg_dict["EVALUATOR"]["TYPE"] == "interactive_evaluator":
-                cuts[("EVALUATOR", "ROLLOUT_BATCH")] = 1
-            d = disk_config(cfg_dict, tree, tmp, cuts)
+            d = disk_config(cfg_dict, tree, tmp, {
+                ("TRAINER", "BATCH_SIZE"): 4, ("TRAINER", "MAX_EPOCHS"): 2,
+                ("TRAINER", "SAVE_WINDOW"): 1})
             cfg = Config(d)
             calib = EpisodeDataset(img_root, ann, "test", resolution=size)
             weights = calibrated_weights(cfg_dict, Task, Config, np.concatenate(
                 [calib.get_item(i)["frames"] for i in (0, 3)]), "cuda")
+            if cfg_dict["EVALUATOR"]["TYPE"] == "interactive_evaluator":
+                log("  (c) fp32 lockstep vs serial evaluation records")
+                lockstep_records(d, Task, Config, weights, card)
             task = build_model(cfg, device="cuda").load_weights(weights)
             del weights
             evaluator = build_evaluator(task, cfg)
@@ -1404,12 +1808,13 @@ def other_configs(fa, C, card, tree):
                 log(f"  metrics.jsonl step {r['step']}: " + ", ".join(
                     f"{k} {v:.5g}" for k, v in r.items() if k not in ("step", "time")))
             n_train, n_eval = 4 * len(steps), len(evaluator.dataset)
+            units = len(evals) * -(-n_eval // getattr(evaluator, "chunk", 1))
             checks = [
                 ("train steps", step_counts,
-                 {k: v * len(steps) for k, v in
-                  expected_train_launches(cfg.MODEL, episodes=4).items()}),
+                 {k: v * len(steps) for k, v in expected_train_launches(
+                     cfg.MODEL, microbatches=len(task.microbatches(4))).items()}),
                 ("evaluations", eval_counts,
-                 {k: v * n_eval * len(evals) for k, v in expected_episode_launches(
+                 {k: v * units for k, v in expected_episode_launches(
                      cfg.MODEL, d["EVALUATOR"]["TYPE"], C.NUM_QUERIES, C.NUM_FRAMES).items()}),
             ]
 
@@ -1513,44 +1918,74 @@ def main(argv=None):
     cfg_dict = get_config("configs/interactron.yaml").to_dict()
     weights = (calibrated_weights(cfg_dict, InteractronTask, Config)
                if wanted & set(range(4, 11)) else None)
+    if run(4) or run(7):
+        # phases 4b and 7b: fp32 at PARITY_DEPTH, weights calibrated there
+        pcfg = json.loads(json.dumps(cfg_dict))
+        pcfg["MODEL"].update(PARITY_DEPTH, DTYPE="float32")
+        pweights = calibrated_weights(pcfg, InteractronTask, Config, device="cuda")
     if run(4):
         log("[4] full-width fp32 predict, card vs CPU")
         full_width_parity(cfg_dict, InteractronTask, Config, weights)
+        log(f"  (b) a batched predict of {BATCHED} episodes at depth {PARITY_DEPTH}, dropout off")
+        batched_parity(pcfg, InteractronTask, Config, pweights, C, "predict")
 
     if run(5) or run(6):
-        log("[5] served path in bf16: next_action x4 + predict per episode")
+        log("[5] served path in bf16: next_action x4 + predict per episode, then in lockstep "
+            f"chunks of {CHUNK}")
         model = InteractronTask(Config(cfg_dict), device="cuda").load_weights(weights)
-        paths["served"], na_ms, pr_ms = served_path(model, fa, C)
+        paths["served"], na_ms, pr_ms, ep_ms = served_path(model, fa, C)
         steady = pr_ms[1:]
         log(f"  predict: {1e3 / np.mean(steady):.3f} episodes/s (mean of {len(steady)} episodes "
             f"after the first, {np.mean(steady):.2f} ms each; first {pr_ms[0]:.1f} ms); "
             f"next_action: median {np.median(na_ms[4:]):.2f} ms over {len(na_ms) - 4} calls "
-            f"after the first episode; card: {card}")
+            f"after the first episode; served episodes (next_action x4 + predict) "
+            f"{1e3 / np.mean(ep_ms[1:]):.3f} episodes/s; card: {card}")
+        paths["served_lockstep"], na_ms, pr_ms, ch_ms = served_path(model, fa, C, 2 * CHUNK,
+                                                                    chunk=CHUNK)
+        log(f"  lockstep chunk of {CHUNK}: predict {1e3 * CHUNK / pr_ms[1]:.3f} episodes/s "
+            f"({pr_ms[1]:.2f} ms a chunk, the second; first {pr_ms[0]:.1f} ms); next_action "
+            f"median {np.median(na_ms[4:]):.2f} ms a call of {CHUNK}; served episodes "
+            f"{1e3 * CHUNK / ch_ms[1]:.3f} episodes/s (serial above: "
+            f"{1e3 / np.mean(ep_ms[1:]):.3f}); peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card: {card}")
 
-        log("[6] where the time goes: one bf16 predict episode under torch.profiler")
+        log("[6] where the time goes: one bf16 predict episode under torch.profiler, then one "
+            f"lockstep predict of {CHUNK}")
         frames = synthetic_frames(200)
+        profile_run(lambda: model.predict({"frames": frames}))
+        frames = np.concatenate([synthetic_frames(200 + e) for e in range(CHUNK)])
         profile_run(lambda: model.predict({"frames": frames}))
         del model
 
     if run(7):
         log("[7] full-width fp32 train step (one episode, dropout on), card vs CPU")
         train_parity(cfg_dict, InteractronTask, Config, weights, C)
+        log(f"  (b) a batched train step of {BATCHED} episodes (INNER_BATCH {BATCHED}) at depth "
+            f"{PARITY_DEPTH}, dropout off")
+        batched_parity(pcfg, InteractronTask, Config, pweights, C, "train")
+    if run(4) or run(7):
+        del pweights
 
     if run(8) or run(9):
-        log(f"[8] bf16 training: 3 steps of 4 episodes (config BATCH_SIZE "
-            f"{cfg_dict['TRAINER']['BATCH_SIZE']} cut to 4 for time), dropout on")
+        log(f"[8] bf16 training: 3 steps of 4 episodes at INNER_BATCH "
+            f"{cfg_dict['TRAINER']['INNER_BATCH']} (config BATCH_SIZE "
+            f"{cfg_dict['TRAINER']['BATCH_SIZE']} cut to 4 for time), dropout on, then one "
+            "step at INNER_BATCH 1")
         model = InteractronTask(Config(cfg_dict), device="cuda").load_weights(weights)
         regions = {}
+        torch.cuda.reset_peak_memory_stats()
         with mask_regions(fa, regions):
-            paths["train"], step_ms, trainer, batch = train_bf16(model, fa, C, Trainer)
+            paths["train"], step_ms, trainer, batch, serial_ms = train_bf16(model, fa, C, Trainer)
         steady = step_ms[1:]
         log(f"  train: {4e3 / np.mean(steady):.3f} episodes/s, {np.mean(steady):.1f} ms per step "
             f"of 4 episodes (mean of {len(steady)} steps after the first, {step_ms[0]:.1f} ms); "
-            f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card: {card}")
+            f"INNER_BATCH 1: {4e3 / serial_ms:.3f} episodes/s ({serial_ms:.1f} ms); peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card: {card}")
 
-        kres[("module", "mask")] = module_mask(fa, regions, 3 * 4)
+        kres[("module", "mask")] = module_mask(fa, regions, 4 * 4)
 
-        log("[9] where the time goes: one bf16 train step of 4 episodes under torch.profiler")
+        log("[9] where the time goes: one bf16 train step of 4 episodes (one microbatch) under "
+            "torch.profiler")
         gen = torch.Generator().manual_seed(1)
         profile_run(lambda: trainer.train_step(batch, gen))
         del model, trainer
@@ -1564,19 +1999,19 @@ def main(argv=None):
         model = InteractronTask(Config(cfg_dict), device="cuda").load_weights(weights)
         with switches(**SPLIT):
             log(f"  formulation {fa.formulation()}")
-            paths["served_split"], na_ms, pr_ms = served_path(model, fa, C, split=True)
-            paths["train_split"], step_ms, trainer, batch = train_bf16(model, fa, C, Trainer,
-                                                                       split=True)
+            paths["served_split"], na_ms, pr_ms, _ = served_path(model, fa, C, split=True)
+            paths["train_split"], step_ms, trainer, batch, serial_ms = train_bf16(
+                model, fa, C, Trainer, split=True)
             steady, steady_step = pr_ms[1:], step_ms[1:]
             log(f"  split predict: {1e3 / np.mean(steady):.3f} episodes/s "
                 f"({np.mean(steady):.2f} ms each after the first); next_action median "
                 f"{np.median(na_ms[4:]):.2f} ms; train: {4e3 / np.mean(steady_step):.3f} "
                 f"episodes/s ({np.mean(steady_step):.1f} ms per step of 4 episodes after the "
-                f"first); card: {card}")
+                f"first; INNER_BATCH 1 {serial_ms:.1f} ms); card: {card}")
             with switches(FLASH_DKV="blocked"):
                 log(f"  (c) one served episode, formulation {fa.formulation()}")
-                paths["served_split_dkv_blocked"], _, _ = served_path(model, fa, C, episodes=1,
-                                                                      split=True)
+                paths["served_split_dkv_blocked"] = served_path(model, fa, C, episodes=1,
+                                                                split=True)[0]
             log("  (d) where the time goes: one split bf16 train step of 4 episodes under "
                 "torch.profiler")
             gen = torch.Generator().manual_seed(1)
@@ -1627,6 +2062,8 @@ def main(argv=None):
         top = kres[("fusion", "mask")] if key == "mask" else kres[("fusion", torch.bfloat16, 0.0)]
         per_shape = []
         for name, *_ in SHAPES:
+            if key != "mask" and key not in SHAPE_KERNELS.get(name, REDESIGNED):
+                continue
             for rate in ((RATE,) if key == "mask" else (0.0, RATE)):
                 r = kres[(name, "mask")] if key == "mask" else kres[(name, torch.bfloat16, rate)]
                 per_shape.append({"shape": name, "rate": rate, "ms": r[f"{key}_ms"],

@@ -8,14 +8,16 @@ evaluate the task's own weights: the first evaluation that is not handed
 trained weights draws them from seed 42 and loads EVALUATOR.CHECKPOINT when
 asked to and the file exists (JAX's `ensure_params`).
 
-The interactive evaluator rolls episodes out one at a time (JAX's
-`ROLLOUT_BATCH: 1`). JAX's lockstep rollout, which batches next_action and
-predict over episodes, is not ported: with ROLLOUT_BATCH > 1 (JAX's default
-is 10) and a policy, `evaluate` raises NotImplementedError instead of
-running the serial loop (the evaluator itself builds, so that every
-configuration's components do).
+The interactive evaluator of a task with a policy rolls chunks of
+EVALUATOR.ROLLOUT_BATCH episodes (default 10) forward in lockstep, as JAX's
+does: one batched next_action per prefix length s = 1..4 and one batched
+adaptive predict per chunk, each episode with its own fast weights, then
+frame-0 scoring per episode in episode order. Its records are the serial
+rollout's (ROLLOUT_BATCH: 1, which runs the same calls on one episode at a
+time). A task without a policy takes random actions one episode at a time.
 """
 
+import concurrent.futures as cf
 import json
 import os
 from datetime import datetime
@@ -140,9 +142,10 @@ class RandomPolicyEvaluator(_EvaluatorBase):
 
 
 class InteractiveEvaluator(_EvaluatorBase):
-    """Closed-loop policy evaluation, one episode at a time: reset, four
-    times next_action -> step, then the adaptive predict and frame-0
-    scoring. A task without a policy takes uniformly random actions."""
+    """Closed-loop policy evaluation: reset, four times next_action -> step,
+    then the adaptive predict and frame-0 scoring; in lockstep over chunks
+    of ROLLOUT_BATCH episodes when the task has a policy. A task without a
+    policy takes uniformly random actions, one episode at a time."""
 
     dataset_cls = InteractiveEpisodeDataset
 
@@ -151,22 +154,53 @@ class InteractiveEvaluator(_EvaluatorBase):
         self.has_policy = hasattr(task, "next_action")
         self.rollout_batch = int(config.EVALUATOR.get("ROLLOUT_BATCH", 10))
 
+    @property
+    def chunk(self):
+        """Episodes rolled out together: ROLLOUT_BATCH, at most the test
+        set's; 1 for a task without a policy."""
+        return max(1, min(self.rollout_batch, len(self.dataset))) if self.has_policy else 1
+
     def evaluate(self, save_results=False, trained=False):
         """As RandomPolicyEvaluator.evaluate."""
-        if self.has_policy and max(1, min(self.rollout_batch, len(self.dataset))) > 1:
-            raise NotImplementedError(
-                f"EVALUATOR.ROLLOUT_BATCH {self.rollout_batch}: the lockstep rollout is not "
-                "ported (it waits for episode batching); set ROLLOUT_BATCH: 1 for the serial "
-                "rollout")
         self.ensure_params(trained)
+        if self.has_policy:
+            return self._evaluate_lockstep(save_results, self.chunk)
         detections = []
         for _ in range(len(self.dataset)):
             batch = self.dataset.reset()
             for _ in range(C.NUM_FRAMES - 1):
-                if self.has_policy:
-                    a = int(self.task.next_action(batch))
-                else:
-                    a = int(np.random.randint(0, C.NUM_ACTIONS))
-                batch = self.dataset.step(a)
+                batch = self.dataset.step(int(np.random.randint(0, C.NUM_ACTIONS)))
             self._record(batch, self.task.predict(batch), detections, save_results)
+        return self._finish(detections, save_results)
+
+    def _evaluate_lockstep(self, save_results, rb):
+        """Chunks of `rb` episodes in episode order (<- `_evaluate_lockstep`),
+        the last one possibly shorter (JAX pads it with copies of its last
+        episode and drops their rows; nothing here compiles per shape). The
+        replays are read by 4 threads; the eval transform draws nothing
+        from the dataset's generator, so the threads cannot change a
+        sample."""
+        ds = self.dataset
+        n = len(ds)
+        detections = []
+        with cf.ThreadPoolExecutor(max_workers=4) as pool:
+            for start in range(0, n, rb):
+                idxs = list(range(start, min(start + rb, n)))
+                acts = [[] for _ in idxs]
+
+                def replay():
+                    samples = list(pool.map(lambda j: ds.partial_sample(idxs[j], acts[j]),
+                                            range(len(idxs))))
+                    return samples, {"frames": np.concatenate([s["frames"] for s in samples])}
+
+                for _ in range(C.NUM_FRAMES - 1):
+                    _, batch = replay()
+                    actions = self.task.next_action(batch).tolist()
+                    for j, a in enumerate(actions):
+                        acts[j].append(C.ACTIONS[a])
+                samples, batch = replay()
+                preds = {k: v.cpu() for k, v in self.task.predict(batch).items()}
+                for j, sample in enumerate(samples):
+                    self._record(sample, {k: v[j:j + 1] for k, v in preds.items()}, detections,
+                                 save_results)
         return self._finish(detections, save_results)

@@ -19,9 +19,11 @@ shuffled train epoch, a test epoch and an evaluation, logs the epoch means
 to `metrics.jsonl`, keeps the uniform weight average of the last
 SAVE_WINDOW epochs, writes `last_state.ckpt` (the whole train state, for
 `resume_from`) every epoch and `detector.ckpt` (the averaged weights) at
-the end. A batch's episodes run one at a time (TRAINER.INNER_BATCH is not
-read). The loop's random stream is its own CPU generator seeded 1234: it
-cannot match JAX's threefry keys.
+the end. The task runs a batch in microbatches of TRAINER.INNER_BATCH
+episodes (tasks/base.py::microbatches); tokens, the LR scale and the
+metrics (means over the batch's episodes) do not depend on the split. The
+loop's random stream is its own CPU generator seeded 1234: it cannot match
+JAX's threefry keys.
 """
 
 import math

@@ -42,6 +42,8 @@ def clipped_sgd_step(params, grads, lr, clip=0.01, dtype=None):
 
 
 def learned_loss_value(fusion_out):
-    """Frobenius norm of the per-prediction loss tokens."""
+    """Frobenius norm of each episode's per-prediction loss tokens, summed
+    over the fusion's batch of episodes: the gradient with respect to an
+    episode's own fast weights is that of its own norm, as under JAX's vmap."""
     x = fusion_out["loss"].float()
-    return torch.sqrt(torch.sum(x * x))
+    return torch.sqrt(torch.sum((x * x).flatten(1), dim=1)).sum()

@@ -13,6 +13,11 @@ device and differentiable in the predictions.
   * loss_bbox / loss_giou: sums over matched pairs / num_boxes, the valid
     target count of the call (at least 1);
   * cardinality_error / class_error for logging.
+
+With `episodes` E the frames are E episodes' frames stacked episode-major,
+and each loss is the (E,) vector of the episodes' own losses, each over its
+own frames and num_boxes: JAX's criterion vmapped over episodes, in one
+call, with one host transfer of every frame's cost matrix.
 """
 
 import torch
@@ -59,11 +64,13 @@ def _elementwise_giou(b1, b2, eps=1e-8):
 
 
 def set_criterion(outputs, targets, *, num_classes, background_c=0.1, cost_class=1.0,
-                  cost_bbox=5.0, cost_giou=2.0, per_frame=False):
+                  cost_bbox=5.0, cost_giou=2.0, per_frame=False, episodes=None):
     """Losses of the frames stacked along B: a dict of fp32 scalars loss_ce,
     loss_bbox, loss_giou, cardinality_error, class_error, plus with
     `per_frame` a "_per_frame" dict of (B,) pieces from which frame f's own
-    losses follow with the same assignment."""
+    losses follow with the same assignment. With `episodes` E each loss is
+    an (E,) vector, one per episode of B / E frames, and each piece
+    (E, B / E)."""
     logits = outputs["pred_logits"].float()
     pboxes = outputs["pred_boxes"].float()
     labels = targets["labels"].long()
@@ -71,8 +78,10 @@ def set_criterion(outputs, targets, *, num_classes, background_c=0.1, cost_class
     valid = targets["valid"].bool()
     b, q, _ = logits.shape
     col_to_row = hungarian_match(outputs, targets, cost_class, cost_bbox, cost_giou)
+    e = episodes or 1
+    per_ep = lambda x: x.reshape(e, -1).sum(1)  # (B, ...) -> (E,) sums
     vf = valid.float()
-    num_boxes = vf.sum().clamp(min=1.0)
+    num_boxes = per_ep(vf).clamp(min=1.0)
 
     # loss_ce: matched queries take their target's label, the rest no-object
     target_classes = torch.full((b, q), num_classes, dtype=torch.long, device=logits.device)
@@ -80,23 +89,23 @@ def set_criterion(outputs, targets, *, num_classes, background_c=0.1, cost_class
     target_classes[fr, col_to_row[fr, tg]] = labels[fr, tg]
     nll = -torch.gather(F.log_softmax(logits, -1), 2, target_classes[..., None])[..., 0]
     w = torch.where(target_classes == num_classes, background_c, 1.0)
-    loss_ce = (w * nll).sum() / w.sum()
+    loss_ce = per_ep(w * nll) / per_ep(w)
 
     # box losses over matched pairs
     rows = col_to_row.clamp(0, q - 1)
     src_boxes = torch.gather(pboxes, 1, rows[..., None].expand(-1, -1, 4))
     l1 = (src_boxes - tgt_boxes).abs().sum(-1)
-    loss_bbox = (l1 * vf).sum() / num_boxes
+    loss_bbox = per_ep(l1 * vf) / num_boxes
     giou_el = _elementwise_giou(box_cxcywh_to_xyxy(src_boxes), box_cxcywh_to_xyxy(tgt_boxes))
-    loss_giou = ((1.0 - giou_el) * vf).sum() / num_boxes
+    loss_giou = per_ep((1.0 - giou_el) * vf) / num_boxes
 
     # logging metrics
     with torch.no_grad():
         card_pred = (logits.argmax(-1) != num_classes).sum(1).float()
-        cardinality_error = (card_pred - vf.sum(1)).abs().mean()
+        cardinality_error = (card_pred - vf.sum(1)).abs().reshape(e, -1).mean(1)
         matched = torch.gather(logits, 1, rows[..., None].expand(-1, -1, logits.shape[-1]))
         correct = (matched.argmax(-1) == labels) & valid
-        class_error = 100.0 * (1.0 - correct.float().sum() / vf.sum().clamp(min=1.0))
+        class_error = 100.0 * (1.0 - per_ep(correct.float()) / per_ep(vf).clamp(min=1.0))
 
     out = {"loss_ce": loss_ce, "loss_bbox": loss_bbox, "loss_giou": loss_giou,
            "cardinality_error": cardinality_error, "class_error": class_error}
@@ -108,4 +117,8 @@ def set_criterion(outputs, targets, *, num_classes, background_c=0.1, cost_class
             "giou_sum": ((1.0 - giou_el) * vf).sum(1),
             "num_boxes": vf.sum(1),
         }
+    if episodes is None:
+        return {k: (v[0] if k != "_per_frame" else v) for k, v in out.items()}
+    if per_frame:
+        out["_per_frame"] = {k: v.reshape(e, -1) for k, v in out["_per_frame"].items()}
     return out

@@ -18,6 +18,7 @@ from interactron_tpu_torch.models.layers import (
     Dropout,
     LayerNorm,
     MultiHeadAttention,
+    with_episodes,
 )
 from interactron_tpu_torch.models.position_encoding import sine_position_embedding
 from interactron_tpu_torch.models.resnet import ResNet50DC5
@@ -103,6 +104,8 @@ class DETR(nn.Module):
     The tiny and ViT backbones are fully trainable, so there the prefix is
     the input (NCHW for the tiny one, the NHWC images for the ViT).
     stage="from_prefix" takes such a prefix and resumes after it.
+    Parameters passed with a leading axis of E episodes (the fast weights;
+    models/layers.py) take frames (E*F, ...) episode-major, F per episode.
     With a generator `gen` the dropout of the backbone and the encoder is
     on, and the decoder's is on with `decoder_gen`, which is `gen` unless
     given (train mode; the multi-frame baseline drops in the decoder
@@ -123,7 +126,7 @@ class DETR(nn.Module):
         self.num_encoder_layers = num_encoder_layers
         if self.vit:
             self.backbone = ViT(grid=image_size // 16, dtype=dtype)
-            feat_ch = 768
+            feat_ch = self.backbone.width
         elif self.tiny:
             self.backbone, feat_ch = TinyBackbone(dtype), TinyBackbone.out_channels
         else:
@@ -172,7 +175,8 @@ class DETR(nn.Module):
         for i in range(self.num_encoder_layers):
             memory = getattr(self, f"encoder_layer{i}")(memory, pos, gen)
 
-        query_pos = self.query_embed.to(self.dtype)[None].expand(b, -1, -1)
+        qe = with_episodes(self.query_embed.to(self.dtype), 2)  # each episode's frames
+        query_pos = qe[:, None].expand(-1, b // qe.shape[0], -1, -1).reshape(b, *qe.shape[1:])
         hs = self.decoder(torch.zeros_like(query_pos), memory, query_pos, pos, decoder_gen)
         logits = self.class_embed(hs)
         boxes = torch.sigmoid(self.bbox_embed(hs).float())

@@ -14,6 +14,16 @@ module (the draws differ, the distributions match).
 Dropout is on exactly when a forward is given a generator (`gen`), the
 counterpart of JAX's `deterministic=False` with a dropout rng; modules stay
 in eval mode throughout.
+
+Per-episode weights (what `jax.vmap` over episodes makes of the fast
+weights): `Conv2d`, `Dense` and `LayerNorm` (so `MLP` and the attention's
+projections) take, through `functional_call`, either their shared weight or
+one with a leading axis of E episodes, (E, *shape). Activations then stay
+(E*F, ...), episode-major: rows e*F .. e*F + F - 1 are episode e's F
+frames. There is one path: a shared weight is the one-episode case
+(`with_episodes`), whose F is the whole batch. A conv is a grouped conv
+with groups=E over the episodes' channels (a batched matmul on the 1x1
+path), a Dense a batched matmul, a LayerNorm a broadcast affine.
 """
 
 import math
@@ -24,6 +34,20 @@ from torch import nn
 
 from interactron_tpu_torch.ops.attention import packed_attention
 from interactron_tpu_torch.ops.flash_attention import draw_seed, dropout_mask
+
+
+def with_episodes(t, rank):
+    """`t` with a leading episode axis: a weight of `rank` dims, shared
+    (viewed as one episode's) or per-episode (E, ...), as it is."""
+    return t.reshape(-1, *t.shape[t.dim() - rank:])
+
+
+def by_episode(x, t):
+    """(x, t) viewed to broadcast episode by episode: `t` is a per-episode
+    tensor (E, *trailing), `x` is episode-major (E*F, ...) whose last
+    dims broadcast against `trailing`; x becomes (E, -1, *trailing) and t
+    (E, 1, *trailing). Reshape the result back to x's shape."""
+    return x.reshape(t.shape[0], -1, *t.shape[1:]), t[:, None]
 
 
 def variance_scaling_(t, scale, fan_in, gen):
@@ -40,7 +64,8 @@ def xavier_uniform_(t, fan_in, fan_out, gen):
 class Conv2d(nn.Module):
     """NCHW conv with torch-style explicit padding, stride and dilation. A
     1x1 conv without padding runs as a matmul; a frozen conv keeps its
-    kernel as a buffer."""
+    kernel as a buffer. A per-episode kernel (E, O, I, kh, kw) convolves
+    each episode's frames with its own kernel."""
 
     def __init__(self, in_ch, out_ch, kernel_size, stride=1, padding=0, dilation=1,
                  use_bias=False, frozen=False, dtype=torch.float32):
@@ -64,16 +89,27 @@ class Conv2d(nn.Module):
 
     def forward(self, x):
         x = x.to(self.dtype)
-        w = self.weight.to(self.dtype)
+        w = with_episodes(self.weight.to(self.dtype), 4)
+        e = w.shape[0]
         if w.shape[-1] == 1 and self.padding == 0:
             if self.stride != 1:
                 x = x[:, :, :: self.stride, :: self.stride]
             b, c, h, wd = x.shape
-            y = torch.matmul(w[:, :, 0, 0], x.reshape(b, c, h * wd)).reshape(b, -1, h, wd)
+            # (E, 1, O, C) @ (E, F, C, HW)
+            y = torch.matmul(w[:, None, :, :, 0, 0], x.reshape(e, b // e, c, h * wd))
+            y = y.reshape(b, -1, h, wd)
         else:
-            y = F.conv2d(x, w, None, self.stride, self.padding, self.dilation)
+            # (E*F, C, H, W) -> (F, E*C, H, W): episode e's frames meet its
+            # kernel in group e
+            b, c, h, wd = x.shape
+            xg = x.reshape(e, b // e, c, h, wd).transpose(0, 1).reshape(b // e, e * c, h, wd)
+            y = F.conv2d(xg, w.flatten(0, 1), None, self.stride, self.padding, self.dilation,
+                         groups=e)
+            y = y.reshape(b // e, e, -1, *y.shape[2:]).transpose(0, 1).reshape(b, -1,
+                                                                               *y.shape[2:])
         if self.bias is not None:
-            y = y + self.bias.to(self.dtype)[None, :, None, None]
+            bias = with_episodes(self.bias.to(self.dtype), 1)
+            y = (y.reshape(e, -1, *y.shape[1:]) + bias[:, None, :, None, None]).reshape(y.shape)
         return y
 
 
@@ -127,9 +163,13 @@ class Dense(nn.Module):
                 self.bias.zero_()
 
     def forward(self, x):
-        y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        x = x.to(self.dtype)
+        w = with_episodes(self.weight.to(self.dtype), 2)  # (E, out, in)
+        y = torch.bmm(x.reshape(w.shape[0], -1, x.shape[-1]), w.transpose(1, 2))
+        y = y.reshape(*x.shape[:-1], w.shape[1])
         if self.bias is not None:
-            y = y + self.bias.to(self.dtype)
+            yv, bv = by_episode(y, with_episodes(self.bias.to(self.dtype), 1))
+            y = (yv + bv).reshape(y.shape)
         return y
 
 
@@ -152,7 +192,8 @@ class LayerNorm(nn.Module):
         mean = x32.mean(-1, keepdim=True)
         var = (x32 - mean).square().mean(-1, keepdim=True)
         y = (x32 - mean) * torch.rsqrt(var + self.eps)
-        return (y * self.weight + self.bias).to(x.dtype)
+        yv, wv = by_episode(y, with_episodes(self.weight, 1))  # (E, d) affine
+        return (yv * wv + with_episodes(self.bias, 1)[:, None]).reshape(y.shape).to(x.dtype)
 
 
 class MLP(nn.Module):

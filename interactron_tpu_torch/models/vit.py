@@ -15,7 +15,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from interactron_tpu_torch.models.layers import Dense, Dropout, LayerNorm, MultiHeadAttention
+from interactron_tpu_torch.models.layers import (
+    Dense,
+    Dropout,
+    LayerNorm,
+    MultiHeadAttention,
+    by_episode,
+    with_episodes,
+)
 
 
 class ViTBlock(nn.Module):
@@ -43,6 +50,7 @@ class ViT(nn.Module):
                  grid=19, dtype=torch.float32):
         super().__init__()
         self.dtype = dtype
+        self.width = width
         self.patch = patch
         self.num_layers = num_layers
         self.patch_embed = Dense(patch * patch * 3, width, dtype=dtype)
@@ -59,12 +67,14 @@ class ViT(nn.Module):
         b, hh, ww, c = images.shape
         p = self.patch
         gh, gw = hh // p, ww // p
-        if gh * gw != self.pos_embed.shape[0]:
+        if gh * gw != self.pos_embed.shape[-2]:
             raise ValueError(f"{gh}x{gw} patches, the position table has "
-                             f"{self.pos_embed.shape[0]}")
+                             f"{self.pos_embed.shape[-2]}")
         x = images[:, : gh * p, : gw * p].reshape(b, gh, p, gw, p, c)
         x = x.permute(0, 1, 3, 2, 4, 5).reshape(b, gh * gw, p * p * c)
-        x = self.patch_embed(x.to(self.dtype)) + self.pos_embed.to(self.dtype)[None]
+        x = self.patch_embed(x.to(self.dtype))
+        xv, pv = by_episode(x, with_episodes(self.pos_embed.to(self.dtype), 2))
+        x = (xv + pv).reshape(x.shape)
         for i in range(self.num_layers):
             x = getattr(self, f"block{i}")(x, gen)
         return self.ln_f(x).reshape(b, gh, gw, -1)

@@ -81,6 +81,9 @@ class TaskModel(nn.Module):
         # the inner step runs in the compute dtype unless that is fp32
         self.inner_dtype = (_DTYPES[inner] if inner is not None
                             else (self.dtype if self.dtype != torch.float32 else None))
+        # episodes a train-step microbatch runs in one batched pass
+        trainer = config.get("TRAINER")
+        self.inner_batch = int(trainer.get("INNER_BATCH", 1)) if trainer is not None else 1
         self.requires_grad_(False)
         self.eval()
         self.to(self.device)
@@ -115,20 +118,32 @@ class TaskModel(nn.Module):
         return {grp: {n: p.detach().requires_grad_(True) for n, p in mod.named_parameters()}
                 for grp, mod in self.modules_by_group().items()}
 
-    def episode(self, batch, i):
-        """Episode i of a numpy batch as tensors on the task's device (frames
-        float32; labels, boxes, valid, actions and its uid as given)."""
-        dev = self.device
-        ep = {k: torch.as_tensor(batch[k][i], device=dev)
-              for k in ("frames", "labels", "boxes", "valid", "actions")}
-        ep["frames"] = ep["frames"].float()
-        ep["episode_uid"] = torch.as_tensor(batch["episode_uid"][i:i + 1], device=dev)
-        return ep
+    def microbatches(self, b):
+        """Slices of a batch of `b` episodes into JAX's microbatches
+        (`scan_microbatches`): max(1, b // INNER_BATCH) equal chunks. A
+        batch they do not divide raises where JAX's assert fires (e.g. a
+        test-epoch tail of 9 at INNER_BATCH 4: 2 chunks of 4.5)."""
+        num_micro = max(1, b // max(1, self.inner_batch))
+        if b % num_micro:
+            raise ValueError(f"batch {b} not divisible by {num_micro} microbatches "
+                             f"(INNER_BATCH {self.inner_batch})")
+        size = b // num_micro
+        return [slice(i * size, (i + 1) * size) for i in range(num_micro)]
 
-    def frames(self, episode):
-        """episode["frames"] (1, s, H, W, 3) ImageNet-normalised, as a float32
+    def episodes(self, batch, idx):
+        """Episodes `idx` (a slice) of a numpy batch as tensors on the task's
+        device: frames (E, 5, H, W, 3) float32; labels, boxes, valid,
+        actions and episode_uid (E,) as given."""
+        dev = self.device
+        eps = {k: torch.as_tensor(batch[k][idx], device=dev)
+               for k in ("frames", "labels", "boxes", "valid", "actions", "episode_uid")}
+        eps["frames"] = eps["frames"].float()
+        return eps
+
+    def frames(self, episodes):
+        """episodes["frames"] (E, s, H, W, 3) ImageNet-normalised, as a float32
         tensor on the model's device."""
-        return torch.as_tensor(episode["frames"], dtype=torch.float32, device=self.device)
+        return torch.as_tensor(episodes["frames"], dtype=torch.float32, device=self.device)
 
     # ------------------------------------------------------------- module fns
 
@@ -146,11 +161,12 @@ class TaskModel(nn.Module):
             return self.detector(images, **kw)
         return functional_call(self.detector, det_params, (images,), kw)
 
-    def fusion_apply(self, detr_out, fus_params=None, gen=None):
-        """Per-frame detector outputs (s, ...) -> fusion with batch dim 1,
-        with `fus_params` in place of its parameters when given."""
+    def fusion_apply(self, detr_out, fus_params=None, gen=None, episodes=1):
+        """Per-frame detector outputs of `episodes` episodes, (E*s, ...)
+        episode-major -> the fusion over a batch of E episodes, with
+        `fus_params` in place of its parameters when given."""
         keys = ("embedded_memory_features", "box_features", "pred_logits", "pred_boxes")
-        x = {k: detr_out[k][None] for k in keys}
+        x = {k: detr_out[k].reshape(episodes, -1, *detr_out[k].shape[1:]) for k in keys}
         if fus_params is None:
             return self.fusion(x, gen=gen)
         return functional_call(self.fusion, fus_params, (x,), {"gen": gen})

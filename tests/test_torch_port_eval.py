@@ -231,8 +231,26 @@ def test_evaluator_saves_results(setup, monkeypatch):
 
 
 def test_lockstep_rollout_raises(setup):
+    """ROLLOUT_BATCH 2 on the 3-episode tree (a full chunk and a tail of
+    one) runs the lockstep rollout, with one batched predict per chunk,
+    and raises nothing: its records are the serial rollout's
+    (ROLLOUT_BATCH 1), in the same order, scores, IoUs and boxes to 1e-5
+    (batched vs unbatched fp32 convs and matmuls)."""
     d, *_, ttask = setup
-    d = dict(d, EVALUATOR=dict(d["EVALUATOR"], TYPE="interactive_evaluator", ROLLOUT_BATCH=2))
-    evaluator = build_evaluator(ttask, Config(d))  # builds; the rollout raises
-    with pytest.raises(NotImplementedError, match="ROLLOUT_BATCH 2"):
-        evaluator.evaluate()
+    runs = {}
+    for rb in (1, 2):
+        cfg = Config(dict(d, EVALUATOR=dict(d["EVALUATOR"], TYPE="interactive_evaluator",
+                                            ROLLOUT_BATCH=rb)))
+        ev = build_evaluator(ttask, cfg)
+        records, calls = _capture(ev), []
+        predict = ttask.predict
+        ttask.predict = lambda batch: calls.append(len(batch["frames"])) or predict(batch)
+        try:
+            out = ev.evaluate(save_results=False, trained=True)
+        finally:
+            del ttask.predict
+        runs[rb] = (out, records, calls)
+    (serial, serial_recs, serial_calls), (lock, lock_recs, lock_calls) = runs[1], runs[2]
+    assert serial_calls == [1, 1, 1] and lock_calls == [2, 1]
+    _assert_records_equal(lock_recs, serial_recs, atol=1e-5)
+    assert lock[2:] == serial[2:]

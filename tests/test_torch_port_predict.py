@@ -65,7 +65,9 @@ def test_inner_gradient_matches_jax_leaf_by_leaf(pair):
     for path, g in want.items():
         name, g_np = _leaf(path, np.asarray(g))
         scale = max(np.abs(g_np).max(), 1e-12)
-        np.testing.assert_allclose(got[name].numpy() / scale, g_np / scale, atol=1e-5,
+        # adapt's gradients carry a leading axis of episodes, here one
+        assert got[name].shape == (1, *g_np.shape), name
+        np.testing.assert_allclose(got[name][0].numpy() / scale, g_np / scale, atol=1e-5,
                                    err_msg=name)
 
 
