@@ -81,11 +81,24 @@ Phases, each of which fails the run (non-zero exit, no "ok" line):
      three predicts, every launch count held
      against the module structure's; its episodes/s, predict ms and peak
      memory.
+ 13. pretrained weights and data parallelism (`pretrained_and_parallel`):
+     (a) configs/interactron.yaml's MODEL.WEIGHTS pointed at a full-width
+     reference-layout DETR-R50-DC5 + FusionGPT `.pth` (every converted leaf
+     loaded torch.equal), one bf16 train step from it (its non-finite
+     gradient leaves counted), the warning for a missing file, and a
+     timm-layout ViT-B/16 at 224 px resized into interactron_scaled, its
+     predict finite; (b) `data_parallel_grads` at world 1 over NCCL in a
+     child under torchrun's environment, bit-equal to the plain step (split
+     formulation, dropout off); (c) two gloo ranks on cuda:0 at PARITY_DEPTH
+     in fp32 against the one-process step at phase 7b's tolerance, and their
+     merged path states equal; (d) `python -m interactron_tpu_torch.train`
+     at RANK 0 of WORLD_SIZE 1 from (a)'s `.pth` with phase 11's cuts, rank
+     0's files written.
 Phases 1-9, 11 and 12 run the default (merged) formulation (but for phase
 11's predict check, which runs split so that two runs are bitwise equal):
-the switches are cleared first.
+the switches are cleared first; phase 13(b) runs split.
 Prints the kernels' JSON line, then {"ok": true, "device": {...}} last.
-`--phases 3,12` (for development) runs phases 1 and 2 and the listed ones
+`--phases 3,13` (for development) runs phases 1 and 2 and the listed ones
 and prints neither line.
 """
 
@@ -622,7 +635,7 @@ def calibrated_weights(config_dict, Task, Config, frames=None, device="cpu"):
     from interactron_tpu_torch.models.layers import FrozenBatchNorm
 
     cfg = json.loads(json.dumps(config_dict))
-    cfg["MODEL"]["DTYPE"] = "float32"
+    cfg["MODEL"].update(DTYPE="float32", WEIGHTS="")  # seed 0's draw, on purpose
     model = Task(Config(cfg), device=device).init(0)
     if not any(isinstance(m, FrozenBatchNorm) for m in model.modules()):
         return model.state_dict()
@@ -1461,7 +1474,7 @@ def from_scratch_step(cfg_dict, tree, card):
         del task, g
 
 
-def train_entry_point(cfg_path, tree, card, resume_from):
+def train_entry_point(cfg_path, tree, card, resume_from, weights=None, env=None):
     """Phase 11b: `python -m interactron_tpu_torch.train --config_file <yaml>
     --device cuda` in a child process on the config at `cfg_path` with only
     DATASET, the epoch and batch cuts, the output directories and
@@ -1470,15 +1483,22 @@ def train_entry_point(cfg_path, tree, card, resume_from):
     evaluation. It resumes from `resume_from` (phase 11's state after epoch
     1, its weights calibrated on the tree), because the entry point's own
     seed-42 weights do not train in bf16 (`from_scratch_step`). Its
-    metrics.jsonl must hold steps 0 and 1, finite."""
+    metrics.jsonl must hold steps 0 and 1, finite. Phase 13(d) runs it
+    without a resume (2 epochs) from MODEL.WEIGHTS `weights`, with torchrun's
+    environment `env`. Returns the run directory's name and its files."""
     import yaml
 
     from interactron_tpu_torch.utils.config import get_config
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_entry_") as tmp:
-        d = disk_config(get_config(cfg_path).to_dict(), tree, tmp, {
-            ("TRAINER", "BATCH_SIZE"): 4, ("TRAINER", "MAX_EPOCHS"): 3,
-            ("TRAINER", "SAVE_WINDOW"): 1, ("TRAINER", "RESUME_FROM"): resume_from})
+        cuts = {("TRAINER", "BATCH_SIZE"): 4, ("TRAINER", "SAVE_WINDOW"): 1}
+        if resume_from:
+            cuts.update({("TRAINER", "MAX_EPOCHS"): 3, ("TRAINER", "RESUME_FROM"): resume_from})
+        else:
+            cuts[("TRAINER", "MAX_EPOCHS")] = 2
+        if weights:
+            cuts[("MODEL", "WEIGHTS")] = weights
+        d = disk_config(get_config(cfg_path).to_dict(), tree, tmp, cuts)
         path = os.path.join(tmp, "config.yaml")
         with open(path, "w") as f:
             yaml.safe_dump(d, f)
@@ -1487,7 +1507,8 @@ def train_entry_point(cfg_path, tree, card, resume_from):
                "--device", "cuda"]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
-                              capture_output=True, text=True, timeout=900)
+                              capture_output=True, text=True, timeout=900,
+                              env=dict(os.environ, **(env or {})))
         secs = time.perf_counter() - t0
         for line in proc.stdout.splitlines()[-6:]:
             log(f"    | {line}")
@@ -1495,16 +1516,19 @@ def train_entry_point(cfg_path, tree, card, resume_from):
             log(proc.stderr[-4000:])
             raise AssertionError(f"{' '.join(cmd[1:4])} exited {proc.returncode}")
         (run_dir,) = os.listdir(d["TRAINER"]["OUTPUT_DIRECTORY"])
+        files = sorted(os.listdir(os.path.join(d["TRAINER"]["OUTPUT_DIRECTORY"], run_dir)))
         recs = _finite_records(os.path.join(d["TRAINER"]["OUTPUT_DIRECTORY"], run_dir))
         if [r["step"] for r in recs] != [0, 1]:
             raise AssertionError(f"entry point logged steps {[r['step'] for r in recs]}")
         log(f"  {' '.join(cmd[1:4])} {os.path.basename(cfg_path)} --device cuda: exit 0 in "
-            f"{secs:.1f} s (process start and the resume included), TRAINER.INNER_BATCH "
+            f"{secs:.1f} s (process start{' and the resume' if resume_from else ''} included), "
+            f"TRAINER.INNER_BATCH "
             f"{d['TRAINER']['INNER_BATCH']}, EVALUATOR.ROLLOUT_BATCH "
             f"{d['EVALUATOR'].get('ROLLOUT_BATCH', 'unset (10)')}; step 1: " + ", ".join(
                 f"{k} {recs[1][k]:.5g}" for k in ("Train/total_loss", "Test/total_loss",
                                                   "Test/mAP_50") if k in recs[1])
             + f"; card: {card}")
+    return run_dir, files
 
 
 def train_from_disk(cfg_dict, fa, C, card, tree):
@@ -1862,14 +1886,368 @@ def other_configs(fa, C, card, tree):
         log(f"  ({name}) took {time.perf_counter() - t_cfg:.1f} s")
     return paths, rates
 
+# ---------------------------------------------------------------- phase 13
+
+
+def reference_layout(state):
+    """The port's interactron state dict (detector + FusionGPT) in the
+    reference's own layout (the inverse of utils/convert_weights.py's
+    `convert_detector` and `convert_fusion_gpt`): what a reference
+    checkpoint of these weights would hold."""
+    out = {}
+    for name, v in state.items():
+        v = v.detach().cpu().float().clone()
+        grp, rest = name.split(".", 1)
+        if grp == "detector":
+            if rest.startswith("backbone."):
+                key = rest[len("backbone."):]
+                m = re.match(r"(layer\d)_block(\d+)\.(.*)", key)
+                if m:
+                    sub = m.group(3).replace("downsample_conv", "downsample.0").replace(
+                        "downsample_bn", "downsample.1")
+                    key = f"{m.group(1)}.{m.group(2)}.{sub}"
+                out[f"backbone.0.body.{key}"] = v
+                continue
+            if rest == "input_proj.weight":
+                out[rest] = v[:, :, None, None]
+                continue
+            if rest == "query_embed":
+                out["query_embed.weight"] = v
+                continue
+            rest = re.sub(r"^bbox_embed\.layer(\d)", r"bbox_embed.layers.\1", rest)
+            rest = re.sub(r"^encoder_layer(\d+)", r"transformer.encoder.layers.\1", rest)
+            rest = re.sub(r"^decoder\.layer(\d+)", r"transformer.decoder.layers.\1", rest)
+            rest = rest.replace("decoder.norm", "transformer.decoder.norm", 1) \
+                if rest.startswith("decoder.norm") else rest
+            rest = rest.replace(".cross_attn.", ".multihead_attn.")
+            m = re.match(r"(.*\.(?:self_attn|multihead_attn))\.([qkv])_proj\.(weight|bias)$", rest)
+            if m:  # packed in_proj, q/k/v rows in that order
+                key = f"{m.group(1)}.in_proj_{m.group(3)}"
+                parts = out.setdefault(key, {})
+                parts[m.group(2)] = v
+                if len(parts) == 3:
+                    out[key] = torch.cat([parts[c] for c in "qkv"])
+                continue
+            out[rest] = v
+        else:
+            rest = re.sub(r"^heads\.(\w+_decoder)\.layer(\d)", r"\1.layers.\2", rest)
+            rest = rest.replace("heads.logit_decoder", "logit_decoder")
+            if rest == "seq_pos_embed":
+                out["fusion.model.seq_pos_embed"] = v[None]
+                continue
+            if rest.startswith(("ln_f.", "head.")):
+                rest = "model." + rest
+            m = re.match(r"block(\d+)\.(.*)", rest)
+            if m:
+                sub = {"attn.q_proj": "attn.query", "attn.k_proj": "attn.key",
+                       "attn.v_proj": "attn.value", "attn.out_proj": "attn.proj",
+                       "mlp_fc": "mlp.0", "mlp_proj": "mlp.2"}
+                tail = m.group(2)
+                for a, b in sub.items():
+                    if tail.startswith(a + "."):
+                        tail = b + tail[len(a):]
+                rest = f"model.blocks.{m.group(1)}.{tail}"
+            out[f"fusion.{rest}"] = v
+    return out
+
+
+def timm_vit_b16(seed, grid=14, width=768, layers=12):
+    """A seeded timm-layout ViT-B/16 state dict with a cls token and a
+    `grid` x `grid` position table (14: a 224 px checkpoint)."""
+    gen = torch.Generator().manual_seed(seed)
+    r = lambda *s: 0.02 * torch.randn(*s, generator=gen)
+    sd = {"patch_embed.proj.weight": r(width, 3, 16, 16), "patch_embed.proj.bias": r(width),
+          "pos_embed": r(1, grid * grid + 1, width), "cls_token": r(1, 1, width),
+          "norm.weight": torch.ones(width), "norm.bias": torch.zeros(width)}
+    for i in range(layers):
+        p = f"blocks.{i}"
+        for ln in ("norm1", "norm2"):
+            sd[f"{p}.{ln}.weight"], sd[f"{p}.{ln}.bias"] = torch.ones(width), torch.zeros(width)
+        for name, o, n in (("attn.qkv", 3 * width, width), ("attn.proj", width, width),
+                           ("mlp.fc1", 4 * width, width), ("mlp.fc2", width, 4 * width)):
+            sd[f"{p}.{name}.weight"], sd[f"{p}.{name}.bias"] = r(o, n), r(o)
+    return sd
+
+
+_DP_CHILD = r'''
+"""One torchrun rank of phase 13: (b) world 1 over NCCL, the plain step and
+data_parallel_grads on one batch; (c) a rank of two over gloo on cuda:0."""
+import json, os, sys
+import numpy as np
+import torch
+from interactron_tpu_torch.ops import flash_attention as fa
+from interactron_tpu_torch.parallel import mesh
+from interactron_tpu_torch.tasks import InteractronTask
+from interactron_tpu_torch.utils.config import Config
+
+mode, cfg_path, weights_path, batch_path, out = sys.argv[1:6]
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+device = mesh.init_distributed("cuda", backend="gloo" if mode == "gloo2" else None)
+r, w = mesh.rank(), mesh.world_size()
+with open(cfg_path) as f:
+    cfg = Config(json.load(f))
+task = InteractronTask(cfg, device=device).load_weights(torch.load(weights_path))
+data = np.load(batch_path)
+batch = {k: data[k] for k in data.files}
+fi = [int(x) for x in batch.pop("frame_index")]
+n = len(fi) // w
+local = {k: v[r * n:(r + 1) * n] for k, v in batch.items()}
+gen = torch.Generator().manual_seed(0)
+res = {"backend": torch.distributed.get_backend(), "device": str(device), "rank": r}
+if mode == "nccl1":
+    plain, pm, _ = task.grads_and_metrics(local, gen, task.init_path_state(8), train=False,
+                                          frame_index=fi)
+fa.reset_launches()
+g, m, state = mesh.data_parallel_grads(task)(local, gen, task.init_path_state(8), train=False,
+                                             frame_index=fi[r * n:(r + 1) * n])
+torch.cuda.synchronize()
+res["launches"] = {k: v for k, v in fa.launches.items() if v}
+if mode == "nccl1":
+    bits = lambda x: x.view(torch.int32) if x.dtype == torch.float32 else x
+    same = [torch.equal(bits(g[grp][k]), bits(plain[grp][k])) for grp in plain for k in plain[grp]]
+    res.update(leaves=len(same), equal=sum(same),
+               nonfinite=sum(int(not torch.isfinite(x).all()) for d in g.values()
+                             for x in d.values()),
+               metrics_equal=all(torch.equal(bits(m[k]), bits(pm[k])) for k in pm))
+else:
+    torch.save({"grads": {grp: {k: v.cpu() for k, v in d.items()} for grp, d in g.items()},
+                "metrics": {k: float(v) for k, v in m.items()},
+                "state": {k: v.cpu() for k, v in state.items()}}, out)
+mesh.shutdown_distributed()
+print("RESULT " + json.dumps(res), flush=True)
+'''
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def torchrun_children(tmp, mode, world, cfg, weights, batch, frame_index, local_ranks):
+    """`world` children of _DP_CHILD in `mode` with torchrun's environment
+    (LOCAL_RANK from `local_ranks`), started together; their RESULT lines
+    and output files."""
+    script = os.path.join(tmp, "dp_child.py")
+    with open(script, "w") as f:
+        f.write(_DP_CHILD)
+    paths = {k: os.path.join(tmp, f"{mode}_{k}") for k in ("cfg.json", "weights.pt", "batch.npz")}
+    with open(paths["cfg.json"], "w") as f:
+        json.dump(cfg, f)
+    torch.save({k: v.cpu() for k, v in weights.items()}, paths["weights.pt"])
+    np.savez(paths["batch.npz"], frame_index=np.asarray(frame_index), **batch)
+    port = str(_free_port())
+    repo = os.path.dirname(os.path.abspath(__file__))
+    procs, outs = [], []
+    for r in range(world):
+        out = os.path.join(tmp, f"{mode}_rank{r}.pt")
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(local_ranks[r]),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=port, PYTHONPATH=repo,
+                   CUBLAS_WORKSPACE_CONFIG=":4096:8")
+        procs.append(subprocess.Popen(
+            [sys.executable, script, mode, paths["cfg.json"], paths["weights.pt"],
+             paths["batch.npz"], out], cwd=repo, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+        outs.append(out)
+    results = []
+    try:
+        for r, p in enumerate(procs):
+            stdout, stderr = p.communicate(timeout=400)
+            if p.returncode != 0:
+                log(stderr[-4000:])
+                raise AssertionError(f"phase 13 {mode} rank {r} exited {p.returncode}")
+            (line,) = [x for x in stdout.splitlines() if x.startswith("RESULT ")]
+            results.append(json.loads(line[len("RESULT "):]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return results, outs
+
+
+def pretrained_and_parallel(cfg_dict, fa, C, card, tree):
+    """Phase 13: (a) MODEL.WEIGHTS: a reference-layout DETR-R50-DC5 +
+    FusionGPT `.pth` (seed 0's weights with FrozenBatchNorm statistics
+    calibrated on the tree, as a trained detector's would be) at init: every
+    converted leaf loaded (torch.equal to its source), one bf16 train step
+    from it with its non-finite gradient leaves counted, the warning for a
+    missing file, and a timm-layout ViT-B/16 (224 px, 14x14) resized into
+    interactron_scaled's 19x19 grid, its predict finite. (b) world 1 over
+    NCCL in a child under torchrun's environment: one full-width bf16 train
+    step through `data_parallel_grads` in the split formulation, dropout
+    off, frame indices fixed, torch.equal to the plain step. (c) two gloo
+    ranks on cuda:0 at PARITY_DEPTH in fp32, dropout off: a batch of 4 split
+    2 + 2, the summed gradients and mean metrics held to the one-process
+    step of 4 at phase 7b's tolerance, and both ranks' merged path states
+    equal. (d) `python -m interactron_tpu_torch.train` at RANK 0 of
+    WORLD_SIZE 1 (NCCL), MODEL.WEIGHTS the `.pth` of (a), phase 11's cuts:
+    exit 0 and rank 0's files written. Returns the launch counts of (a)'s
+    in-process paths."""
+    import warnings
+
+    from interactron_tpu_torch.data.episode_dataset import EpisodeDataset, EpisodeLoader
+    from interactron_tpu_torch.tasks import InteractronTask
+    from interactron_tpu_torch.utils import convert_weights
+    from interactron_tpu_torch.utils.config import Config, get_config
+
+    paths = {}
+    img_root, ann = tree
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p13_") as tmp:
+        t0 = time.perf_counter()
+        calib = EpisodeDataset(img_root, ann, "test")
+        weights = calibrated_weights(cfg_dict, InteractronTask, Config, np.concatenate(
+            [calib.get_item(i)["frames"] for i in (0, 3)]), device="cuda")
+        ref = reference_layout(weights)
+        pth = os.path.join(tmp, "detr-dc5-interactron.pth")
+        torch.save({"model": ref}, pth)
+        log(f"  (a) reference-layout .pth: {len(ref)} tensors, "
+            f"{os.path.getsize(pth) / 1e6:.1f} MB (seed 0, FrozenBatchNorm statistics "
+            f"calibrated on the tree)")
+        d = json.loads(json.dumps(cfg_dict))
+        d["MODEL"]["WEIGHTS"] = pth
+        task = InteractronTask(Config(d), device="cuda").init(42)
+        converted = convert_weights.convert_reference(convert_weights.read_torch(pth))
+        state = task.state_dict()
+        loaded = [k for k, v in converted.items()
+                  if torch.equal(state[k].cpu(), torch.from_numpy(v))]
+        source = [k for k in converted if torch.equal(weights[k].cpu(), state[k].cpu())]
+        log(f"  MODEL.WEIGHTS: {len(loaded)} of {len(converted)} converted leaves loaded "
+            f"torch.equal, {len(source)} equal to their source, of the task's {len(state)} "
+            f"tensors")
+        if len(loaded) != len(converted) or len(source) != len(converted) \
+                or set(converted) != set(state):
+            raise AssertionError("MODEL.WEIGHTS did not load every leaf")
+        ds = EpisodeDataset(img_root, ann, "train", resolution=task.img_size,
+                            max_boxes=task.max_boxes)
+        batch = next(iter(EpisodeLoader(ds, 4, shuffle=False, num_workers=0)))
+        fa.reset_launches()
+        g, m, _ = task.grads_and_metrics(batch, torch.Generator().manual_seed(0),
+                                         task.init_path_state(8), train=True)
+        torch.cuda.synchronize()
+        paths["pretrained_train_step"] = dict(fa.launches)
+        bad = {grp: sum(int(not torch.isfinite(x).all()) for x in dd.values())
+               for grp, dd in g.items()}
+        log(f"  one bf16 train step of 4 episodes from those weights (INNER_BATCH "
+            f"{task.inner_batch}, dropout on): total_loss {float(m['total_loss']):.4f}; "
+            f"gradient leaves not finite {bad} of { {k: len(v) for k, v in g.items()} }; "
+            f"launches {paths['pretrained_train_step']}; card: {card}")
+        del task, g
+        d["MODEL"]["WEIGHTS"] = os.path.join(tmp, "absent.ckpt")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            InteractronTask(Config(d), device="cpu").init(0)
+        said = [str(w.message) for w in caught if "MODEL.WEIGHTS" in str(w.message)]
+        log(f"  a missing MODEL.WEIGHTS warns: {said}")
+        if said != [f"MODEL.WEIGHTS not found, random init: {d['MODEL']['WEIGHTS']}"]:
+            raise AssertionError(f"missing-file warning {said}")
+
+        vit = os.path.join(tmp, "vit-b16-224.pth")
+        torch.save(timm_vit_b16(1), vit)
+        sd = get_config("configs/interactron_scaled.yaml").to_dict()
+        sd["MODEL"]["WEIGHTS"] = vit
+        scaled = InteractronTask(Config(sd), device="cuda").init(0)
+        conv = convert_weights.convert_vit_b16(convert_weights.read_torch(vit), grid=19)
+        st = scaled.state_dict()
+        vit_loaded = sum(torch.equal(st[k].cpu(), torch.from_numpy(v)) for k, v in conv.items())
+        frames = synthetic_frames(5, size=scaled.img_size)
+        fa.reset_launches()
+        pred = scaled.predict({"frames": frames})
+        torch.cuda.synchronize()
+        paths["pretrained_vit_predict"] = dict(fa.launches)
+        finite = all(bool(torch.isfinite(v).all()) for v in pred.values())
+        log(f"  timm-layout ViT-B/16 (224 px, 14x14 + cls) into interactron_scaled: "
+            f"{vit_loaded} of {len(conv)} leaves loaded torch.equal (pos_embed resized to "
+            f"19x19 {tuple(st['detector.backbone.pos_embed'].shape)}); predict finite: "
+            f"{finite}; launches {paths['pretrained_vit_predict']}")
+        if vit_loaded != len(conv) or not finite:
+            raise AssertionError(f"ViT load {vit_loaded}/{len(conv)}, predict finite {finite}")
+        del scaled, pred
+        log(f"  (a) took {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        bbatch = {k: v[:2] for k, v in batch.items() if k != "initial_image_path"}
+        with switches(**SPLIT):
+            (res,), _ = torchrun_children(tmp, "nccl1", 1, cfg_dict, weights, bbatch, [2, 3],
+                                          [0])
+        log(f"  (b) world 1 over {res['backend']} on {res['device']}, split formulation, "
+            f"bf16, the tree's first 2 episodes, dropout off: data_parallel_grads equal bit "
+            f"for bit to the plain step on {res['equal']} of {res['leaves']} gradient leaves ({res['nonfinite']} "
+            f"not finite), metrics equal {res['metrics_equal']}; launches {res['launches']}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        if res["backend"] != "nccl" or res["equal"] != res["leaves"] or not res["metrics_equal"]:
+            raise AssertionError(f"world-1 data parallel step differs: {res}")
+        del weights
+
+        t0 = time.perf_counter()
+        pcfg = json.loads(json.dumps(cfg_dict))
+        pcfg["MODEL"].update(PARITY_DEPTH, DTYPE="float32")
+        pweights = calibrated_weights(pcfg, InteractronTask, Config, device="cuda")
+        cbatch = synthetic_batch(7, 4, pcfg["MODEL"]["NUM_CLASSES"], C)
+        fi = [2, 3, 1, 4]
+        results, outs = torchrun_children(tmp, "gloo2", 2, pcfg, pweights, cbatch, fi, [0, 0])
+        ranks = [torch.load(o) for o in outs]
+        model = InteractronTask(Config(pcfg), device="cuda").load_weights(pweights)
+        one = {}
+        for key, b in (("base", cbatch), ("moved", perturbed(cbatch))):
+            g, m, state = model.grads_and_metrics(b, torch.Generator().manual_seed(0),
+                                                  model.init_path_state(8), train=False,
+                                                  frame_index=fi)
+            one[key] = ({grp: {k: v.cpu() for k, v in dd.items()} for grp, dd in g.items()},
+                        {k: float(v) for k, v in m.items()}, {k: v.cpu() for k, v in state.items()})
+        del model
+        norm = lambda dd: sum(torch.sum(x.double() ** 2) for x in dd.values()).sqrt().item()
+        (gb, mb, sb), (gm, mm, _) = one["base"], one["moved"]
+        for grp in gb:
+            err = norm({k: ranks[0]["grads"][grp][k] - gb[grp][k] for k in gb[grp]}) / norm(gb[grp])
+            sens = norm({k: gm[grp][k] - gb[grp][k] for k in gb[grp]}) / norm(gb[grp])
+            tol = max(10 * sens, GRAD_FLOOR)
+            log(f"  (c) 2 gloo ranks on cuda:0 (fp32, depth {PARITY_DEPTH}, 2 + 2 episodes) vs "
+                f"one process of 4: {grp} gradient ||dp - one|| / ||one|| = {err:.3e} "
+                f"tol={tol:.3e} (max of 10 x the card's own change, {sens:.3e}, and "
+                f"{GRAD_FLOOR:g})")
+            if not err <= tol:
+                raise AssertionError(f"two-rank {grp} gradient: {err} > {tol}")
+        for k, v in mb.items():
+            if "loss" in k or k == "policy_reward":
+                err, tol = abs(ranks[0]["metrics"][k] - v), max(1e-4 * abs(v), 10 * abs(mm[k] - v))
+                log(f"  (c) metric {k}: ranks {ranks[0]['metrics'][k]:.6f} one process {v:.6f} "
+                    f"err={err:.3e} tol={tol:.3e}")
+                if not err <= tol:
+                    raise AssertionError(f"two-rank metric {k}: {err} > {tol}")
+        same_state = all(torch.equal(ranks[0]["state"][k], ranks[1]["state"][k]) for k in sb)
+        same_action = torch.equal(ranks[0]["state"]["action"], sb["action"])
+        log(f"  (c) merged path state equal on both ranks: {same_state}; its actions equal to "
+            f"the one-process step's: {same_action}; launches per rank "
+            f"{[r['launches'] for r in results]}; {time.perf_counter() - t0:.1f} s")
+        if not (same_state and same_action):
+            raise AssertionError("two-rank path states differ")
+        del pweights
+
+        t0 = time.perf_counter()
+        run_dir, files = train_entry_point(
+            "configs/interactron.yaml", tree, card, None, weights=pth,
+            env={"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                 "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port())})
+        log(f"  (d) rank 0 of world 1 wrote {files} in {run_dir}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        if files != ["detector.ckpt", "last_state.ckpt", "logs"] or run_dir.endswith("-p0"):
+            raise AssertionError(f"entry point at world 1 wrote {files} in {run_dir}")
+    return paths
+
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
     parser.add_argument("--phases", default="all",
-                        help="comma-separated phases 3-12 to run after 1 and 2 (a partial run "
+                        help="comma-separated phases 3-13 to run after 1 and 2 (a partial run "
                              "for development: it prints no kernels line and no ok line)")
     args = parser.parse_args(argv)
-    wanted = set(range(3, 13)) if args.phases == "all" else {int(p) for p in
+    wanted = set(range(3, 14)) if args.phases == "all" else {int(p) for p in
                                                              args.phases.split(",")}
     run = lambda phase: phase in wanted
     if not torch.cuda.is_available():
@@ -2021,7 +2399,7 @@ def main(argv=None):
     del weights
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tree_") as tmp:
-        tree = make_tree(tmp, C) if run(11) or run(12) else None
+        tree = make_tree(tmp, C) if run(11) or run(12) or run(13) else None
         if run(11):
             t11 = time.perf_counter()
             log("[11] train and evaluate from disk: Trainer.train over a JPEG tree, the "
@@ -2035,8 +2413,14 @@ def main(argv=None):
             other_paths, _ = other_configs(fa, C, card, tree)
             paths.update(other_paths)
             log(f"  phase 12 took {time.perf_counter() - t12:.1f} s")
+        if run(13):
+            t13 = time.perf_counter()
+            log("[13] pretrained_and_parallel: MODEL.WEIGHTS from reference-layout files, "
+                "episode data parallelism over torch.distributed")
+            paths.update(pretrained_and_parallel(cfg_dict, fa, C, card, tree))
+            log(f"  phase 13 took {time.perf_counter() - t13:.1f} s")
 
-    if wanted != set(range(3, 13)):
+    if wanted != set(range(3, 14)):
         log(f"total {time.perf_counter() - t_start:.1f} s")
         log(f"partial run (phases 1, 2, {sorted(wanted)}): no kernels line, no ok line")
         return 0

@@ -131,10 +131,17 @@ class EpisodeLoader:
     ordered table of slots, at most `prefetch + num_workers` batches ahead,
     and batches come out in index order. Item i of an epoch draws from
     `RandomState((seed * 1000003 + i) % (2**31 - 1))`, so a batch does not
-    depend on the thread that loaded it. One process loads every batch."""
+    depend on the thread that loaded it.
+
+    Over `process_count` ranks (parallel/mesh.py) `batch_size` is the
+    global batch: rank `process_index` loads the contiguous slice of each
+    index batch that is its own, and a tail batch that the ranks do not
+    divide whole, on every rank (<- `_local_slice`). The shuffle is
+    seeded, so the ranks agree on the order without talking. There, each
+    batch carries its global episode count as `_global_rows`."""
 
     def __init__(self, dataset, batch_size, shuffle=False, num_workers=2, prefetch=2,
-                 drop_last=True, seed=0):
+                 drop_last=True, seed=0, process_index=0, process_count=1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -143,6 +150,8 @@ class EpisodeLoader:
         self.drop_last = drop_last
         self.rng_seed = seed
         self.rng = np.random.RandomState(seed)
+        self.process_index = int(process_index)
+        self.process_count = max(1, int(process_count))
 
     def __len__(self):
         n = len(self.dataset)
@@ -159,8 +168,20 @@ class EpisodeLoader:
         rng = np.random.RandomState((self.rng_seed * 1000003 + int(i)) % (2**31 - 1))
         return self.dataset.get_item(int(i), rng=rng)
 
+    def _local_slice(self, ib):
+        """This rank's part of a global index batch, and the batch's size."""
+        g = len(ib)
+        if self.process_count > 1 and g % self.process_count == 0:
+            n = g // self.process_count
+            ib = ib[self.process_index * n:(self.process_index + 1) * n]
+        return ib, g
+
     def _emit(self, ib):
-        return collate([self._load(i) for i in ib])
+        local, g = self._local_slice(ib)
+        batch = collate([self._load(i) for i in local])
+        if self.process_count > 1:
+            batch["_global_rows"] = g
+        return batch
 
     def __iter__(self):
         if self.num_workers == 0:

@@ -24,6 +24,14 @@ episodes (tasks/base.py::microbatches); tokens, the LR scale and the
 metrics (means over the batch's episodes) do not depend on the split. The
 loop's random stream is its own CPU generator seeded 1234: it cannot match
 JAX's threefry keys.
+
+Over several torch.distributed ranks (parallel/mesh.py; BATCH_SIZE must
+divide among them) each rank loads its slice of every batch and the train
+step is `data_parallel_grads`: gradients summed, metrics averaged, path
+state merged, so every rank holds the same weights. Tokens advance by the
+global batch. A test batch that divides is sharded the same way; a tail
+that does not is computed whole on every rank. Rank r > 0 logs to its own
+directory (suffix `-p{r}`), and only rank 0 writes checkpoints.
 """
 
 import math
@@ -34,6 +42,13 @@ from datetime import datetime
 import torch
 
 from interactron_tpu_torch.data.episode_dataset import EpisodeDataset, EpisodeLoader
+from interactron_tpu_torch.parallel.mesh import (
+    data_parallel_grads,
+    mean_metrics,
+    merge_path_state,
+    rank,
+    world_size,
+)
 from interactron_tpu_torch.utils.checkpoint import (
     RunningAverage,
     load_state,
@@ -82,6 +97,11 @@ class Trainer:
         self.max_epochs = int(t.MAX_EPOCHS)
         self.save_window = int(t.get("SAVE_WINDOW", 0) or 0)
         self.num_workers = int(t.get("NUM_WORKERS", 2))
+        self.rank, self.world = rank(), world_size()
+        if self.batch_size % self.world:
+            raise ValueError(f"BATCH_SIZE {self.batch_size} does not divide among "
+                             f"{self.world} ranks")
+        self.grads_fn = data_parallel_grads(task) if self.world > 1 else task.grads_and_metrics
         self.avg = RunningAverage()
         adam = lambda mods, lr: torch.optim.Adam([p for m in mods for p in m.parameters()],
                                                  lr=lr, betas=(0.9, 0.999), eps=1e-8)
@@ -129,13 +149,15 @@ class Trainer:
         return gnorm
 
     def train_step(self, batch, gen, frame_index=None):
-        """One step on a batch of episodes (see InteractronTask.grads_and_metrics):
-        returns the metrics with the pre-clip `grad_norm`."""
+        """One step on a batch of episodes (see InteractronTask.grads_and_metrics;
+        over several ranks, this rank's slice of it): returns the metrics
+        with the pre-clip `grad_norm`."""
         scale = self._lr_scale()
-        grads, metrics, self.path_state = self.task.grads_and_metrics(
+        grads, metrics, self.path_state = self.grads_fn(
             batch, gen, self.path_state, train=True, frame_index=frame_index)
         metrics["grad_norm"] = float(self.apply_grads(grads, scale))
-        self._advance_tokens(batch["frames"].shape[0], batch["frames"].shape[1])
+        b, s = batch["frames"].shape[:2]
+        self._advance_tokens(batch.get("_global_rows", b * self.world), s)
         return metrics
 
     # ------------------------------------------------------------- the loop
@@ -144,8 +166,9 @@ class Trainer:
         """The run's output directory, logger and datasets, and a path state
         with a row for every train and test episode uid."""
         t = self.config.TRAINER
+        suffix = f"-p{self.rank}" if self.rank else ""
         self.out_dir = os.path.join(t.OUTPUT_DIRECTORY,
-                                    datetime.now().strftime("%m-%d-%Y:%H:%M:%S"))
+                                    datetime.now().strftime("%m-%d-%Y:%H:%M:%S") + suffix)
         os.makedirs(self.out_dir, exist_ok=True)
         self.logger = MetricLogger(os.path.join(self.out_dir, "logs"))
         self.checkpoint_path = os.path.join(self.out_dir, "detector.ckpt")
@@ -167,7 +190,8 @@ class Trainer:
         is_train = split == "train"
         loader = EpisodeLoader(self.train_dataset if is_train else self.test_dataset,
                                self.batch_size, shuffle=is_train, num_workers=self.num_workers,
-                               seed=epoch, drop_last=is_train)
+                               seed=epoch, drop_last=is_train, process_index=self.rank,
+                               process_count=self.world)
         acc, nb = {}, 0
         for batch in loader:
             if is_train:
@@ -175,6 +199,12 @@ class Trainer:
                 metrics = self.train_step(batch, gen)
             else:
                 metrics, self.path_state = self.task.eval_metrics(batch, gen, self.path_state)
+                if self.world > 1:
+                    # a sharded batch's metrics are averaged; a tail every
+                    # rank computed whole is the same on all of them
+                    if len(batch["frames"]) * self.world == batch["_global_rows"]:
+                        metrics = mean_metrics(metrics)
+                    self.path_state = merge_path_state(self.path_state)
             acc = {k: acc.get(k, 0.0) + v for k, v in metrics.items()}
             nb += 1
         means = {k: float(v) / nb for k, v in acc.items()}
@@ -216,9 +246,11 @@ class Trainer:
                 print(f"epoch {epoch}: train loss {train_loss:.5f} ({time.time() - t0:.1f}s)")
                 if self.save_window and max_epochs - epoch <= self.save_window:
                     self.avg.add(dict(self.task.named_parameters()), 1.0 / self.save_window)
-                save_state(os.path.join(self.out_dir, "last_state.ckpt"), self.task, self.opts,
-                           self.path_state, epoch, self.tokens)
-            save_checkpoint(self.checkpoint_path, self.task, self.avg.value())
+                if self.rank == 0:  # the ranks hold the same weights
+                    save_state(os.path.join(self.out_dir, "last_state.ckpt"), self.task,
+                               self.opts, self.path_state, epoch, self.tokens)
+            if self.rank == 0:
+                save_checkpoint(self.checkpoint_path, self.task, self.avg.value())
         finally:
             self.logger.close()
         return self.task

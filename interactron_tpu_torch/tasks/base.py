@@ -10,6 +10,9 @@ train step differentiate explicit leaf copies of them, passed in through
 gradients back (engine/trainer.py).
 """
 
+import os
+import warnings
+
 import torch
 from torch import nn
 from torch.func import functional_call
@@ -19,6 +22,7 @@ from interactron_tpu_torch.models.detr import DETR
 from interactron_tpu_torch.models.fusion import build_fusion
 from interactron_tpu_torch.models.layers import MultiHeadAttention
 from interactron_tpu_torch.utils import constants as C
+from interactron_tpu_torch.utils.checkpoint import load_pretrained
 
 _DTYPES = {None: torch.float32, "float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -90,12 +94,21 @@ class TaskModel(nn.Module):
 
     def init(self, seed):
         """Draw every weight from `torch.Generator().manual_seed(seed)` (on the
-        CPU, so a seed gives the same weights on every device)."""
+        CPU, so a seed gives the same weights on every device), then load
+        MODEL.WEIGHTS over them where the file exists
+        (utils/checkpoint.py::load_pretrained), or warn as the JAX package
+        does where it does not."""
         gen = torch.Generator().manual_seed(int(seed))
         self.to("cpu")
         for mod in self.modules():
             if hasattr(mod, "init_weights"):
                 mod.init_weights(gen)
+        weights = self.config.MODEL.get("WEIGHTS")
+        if weights:
+            if os.path.exists(weights):
+                load_pretrained(weights, self)
+            else:
+                warnings.warn(f"MODEL.WEIGHTS not found, random init: {weights}")
         return self.to(self.device)
 
     def load_weights(self, state_dict):
