@@ -94,6 +94,14 @@ Phases, each of which fails the run (non-zero exit, no "ok" line):
      merged path states equal; (d) `python -m interactron_tpu_torch.train`
      at RANK 0 of WORLD_SIZE 1 from (a)'s `.pth` with phase 11's cuts, rank
      0's files written.
+ 14. the grid and the host modules (`grid_and_host`): (a) two gloo ranks
+     share cuda:0 as dp 1 x tp 2 at full width with the class heads
+     sharded over tp (`shard_heads`): fp32 predict, next_action and the
+     inner step's gradients against one process, and a bf16 served episode
+     with its launch counts and the predict's ms; (b) the kernel build
+     barrier of `init_distributed`: local rank 0 builds, the other rank
+     waits; (c) the native JPEG loader on phase 11's tree against the PIL
+     path, with both paths' episodes/s.
 Phases 1-9, 11 and 12 run the default (merged) formulation (but for phase
 11's predict check, which runs split so that two runs are bitwise equal):
 the switches are cleared first; phase 13(b) runs split.
@@ -2029,30 +2037,24 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def torchrun_children(tmp, mode, world, cfg, weights, batch, frame_index, local_ranks):
-    """`world` children of _DP_CHILD in `mode` with torchrun's environment
-    (LOCAL_RANK from `local_ranks`), started together; their RESULT lines
-    and output files."""
-    script = os.path.join(tmp, "dp_child.py")
+def run_ranks(tmp, name, script_text, args, local_ranks, env=None):
+    """One child a rank of `script_text` (written to `tmp`), with torchrun's
+    environment (LOCAL_RANK from `local_ranks`) and `args` after the
+    script, each rank's output file last; started together. Returns their
+    RESULT lines and output files."""
+    script = os.path.join(tmp, f"{name}_child.py")
     with open(script, "w") as f:
-        f.write(_DP_CHILD)
-    paths = {k: os.path.join(tmp, f"{mode}_{k}") for k in ("cfg.json", "weights.pt", "batch.npz")}
-    with open(paths["cfg.json"], "w") as f:
-        json.dump(cfg, f)
-    torch.save({k: v.cpu() for k, v in weights.items()}, paths["weights.pt"])
-    np.savez(paths["batch.npz"], frame_index=np.asarray(frame_index), **batch)
+        f.write(script_text)
     port = str(_free_port())
     repo = os.path.dirname(os.path.abspath(__file__))
     procs, outs = [], []
-    for r in range(world):
-        out = os.path.join(tmp, f"{mode}_rank{r}.pt")
-        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(local_ranks[r]),
-                   MASTER_ADDR="127.0.0.1", MASTER_PORT=port, PYTHONPATH=repo,
-                   CUBLAS_WORKSPACE_CONFIG=":4096:8")
-        procs.append(subprocess.Popen(
-            [sys.executable, script, mode, paths["cfg.json"], paths["weights.pt"],
-             paths["batch.npz"], out], cwd=repo, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True))
+    for r, local_rank in enumerate(local_ranks):
+        out = os.path.join(tmp, f"{name}_rank{r}.pt")
+        e = dict(os.environ, RANK=str(r), WORLD_SIZE=str(len(local_ranks)),
+                 LOCAL_RANK=str(local_rank), MASTER_ADDR="127.0.0.1", MASTER_PORT=port,
+                 PYTHONPATH=repo, **(env or {}))
+        procs.append(subprocess.Popen([sys.executable, script, *args, out], cwd=repo, env=e,
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
         outs.append(out)
     results = []
     try:
@@ -2060,7 +2062,7 @@ def torchrun_children(tmp, mode, world, cfg, weights, batch, frame_index, local_
             stdout, stderr = p.communicate(timeout=400)
             if p.returncode != 0:
                 log(stderr[-4000:])
-                raise AssertionError(f"phase 13 {mode} rank {r} exited {p.returncode}")
+                raise AssertionError(f"{name} rank {r} exited {p.returncode}")
             (line,) = [x for x in stdout.splitlines() if x.startswith("RESULT ")]
             results.append(json.loads(line[len("RESULT "):]))
     finally:
@@ -2069,6 +2071,19 @@ def torchrun_children(tmp, mode, world, cfg, weights, batch, frame_index, local_
                 p.kill()
                 p.wait()
     return results, outs
+
+
+def torchrun_children(tmp, mode, cfg, weights, batch, frame_index, local_ranks):
+    """One child of _DP_CHILD in `mode` a local rank of `local_ranks`
+    (`run_ranks`): their RESULT lines and output files."""
+    paths = {k: os.path.join(tmp, f"{mode}_{k}") for k in ("cfg.json", "weights.pt", "batch.npz")}
+    with open(paths["cfg.json"], "w") as f:
+        json.dump(cfg, f)
+    torch.save({k: v.cpu() for k, v in weights.items()}, paths["weights.pt"])
+    np.savez(paths["batch.npz"], frame_index=np.asarray(frame_index), **batch)
+    return run_ranks(tmp, f"p13_{mode}", _DP_CHILD,
+                     [mode, paths["cfg.json"], paths["weights.pt"], paths["batch.npz"]],
+                     local_ranks, env={"CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
 
 
 def pretrained_and_parallel(cfg_dict, fa, C, card, tree):
@@ -2173,7 +2188,7 @@ def pretrained_and_parallel(cfg_dict, fa, C, card, tree):
         t0 = time.perf_counter()
         bbatch = {k: v[:2] for k, v in batch.items() if k != "initial_image_path"}
         with switches(**SPLIT):
-            (res,), _ = torchrun_children(tmp, "nccl1", 1, cfg_dict, weights, bbatch, [2, 3],
+            (res,), _ = torchrun_children(tmp, "nccl1", cfg_dict, weights, bbatch, [2, 3],
                                           [0])
         log(f"  (b) world 1 over {res['backend']} on {res['device']}, split formulation, "
             f"bf16, the tree's first 2 episodes, dropout off: data_parallel_grads equal bit "
@@ -2190,7 +2205,7 @@ def pretrained_and_parallel(cfg_dict, fa, C, card, tree):
         pweights = calibrated_weights(pcfg, InteractronTask, Config, device="cuda")
         cbatch = synthetic_batch(7, 4, pcfg["MODEL"]["NUM_CLASSES"], C)
         fi = [2, 3, 1, 4]
-        results, outs = torchrun_children(tmp, "gloo2", 2, pcfg, pweights, cbatch, fi, [0, 0])
+        results, outs = torchrun_children(tmp, "gloo2", pcfg, pweights, cbatch, fi, [0, 0])
         ranks = [torch.load(o) for o in outs]
         model = InteractronTask(Config(pcfg), device="cuda").load_weights(pweights)
         one = {}
@@ -2241,13 +2256,285 @@ def pretrained_and_parallel(cfg_dict, fa, C, card, tree):
     return paths
 
 
+# ---------------------------------------------------------------- phase 14
+
+_TP_CHILD = r'''
+"""One rank of phase 14: a tp rank of a dp 1 x tp 2 grid on cuda:0 over gloo.
+It joins the group through init_distributed, whose build barrier (the
+kernels' build, a no-op after phase 2) it records; then, with the class
+heads sharded, (a) the fp32 inner step, predict, 4 next_action calls and a
+fusion pass, and (b) one bf16 served episode with its launch counts and the
+bf16 predict's ms."""
+import json, os, sys, time
+import numpy as np
+import torch
+from interactron_tpu_torch.ops import cuda_build
+from interactron_tpu_torch.ops import flash_attention as fa
+from interactron_tpu_torch.parallel import mesh
+from interactron_tpu_torch.tasks import InteractronTask
+from interactron_tpu_torch.utils.config import Config
+
+cfg_path, weights_path, frames_path, out = sys.argv[1:5]
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+build = {}
+
+
+def record_build():
+    build["start"] = time.time()
+    build["built"] = sorted(cuda_build.build_all())
+    build["end"] = time.time()
+
+
+device = mesh.init_distributed("cuda:0", backend="gloo", build=record_build)
+after = time.time()
+grid = mesh.make_grid(dp=1, tp=2)
+with open(cfg_path) as f:
+    cfg = json.load(f)
+weights = torch.load(weights_path)
+frames = np.load(frames_path)
+res = {"rank": mesh.rank(), "local_rank": int(os.environ["LOCAL_RANK"]), "device": device,
+       "backend": torch.distributed.get_backend(), "build": build, "after_barrier": after}
+
+
+def gathered(d, heads):
+    """d on the host, each sharded head's (E, rows, in) leaf gathered on its
+    rows."""
+    out = {}
+    for k, v in d.items():
+        if k in heads:
+            parts = [torch.empty_like(v) for _ in range(grid.tp)]
+            torch.distributed.all_gather(parts, v.contiguous(), group=grid.tp_group)
+            v = torch.cat(parts, 1)
+        out[k] = v.cpu()
+    return out
+
+
+cfg32 = json.loads(json.dumps(cfg))
+cfg32["MODEL"]["DTYPE"] = "float32"
+task = InteractronTask(Config(cfg32), device=device).load_weights(weights)
+res["sharded"] = mesh.shard_heads(task, grid)
+heads = {n[len("detector."):] for n in res["sharded"] if n.startswith("detector.")}
+fast, g, _ = task.adapt({"frames": frames})
+pred = task.predict({"frames": frames})
+actions = [int(task.next_action({"frames": frames[:, :s]})[0]) for s in range(1, 5)]
+with torch.no_grad():
+    fus = task.fusion_apply(task.detr_apply(None, task.frames({"frames": frames})[0]))
+fast = gathered(fast, heads)
+torch.save({"g": gathered(g, heads), "fast": {k: fast[k] for k in heads},
+            "pred": {k: v.cpu() for k, v in pred.items()}, "actions": actions,
+            "fusion_logits": fus["pred_logits"].cpu()}, out)
+del task, fast, g, pred, fus
+
+task = InteractronTask(Config(cfg), device=device).load_weights(weights)
+mesh.shard_heads(task, grid)
+
+
+def served():
+    for s in range(1, 5):
+        task.next_action({"frames": frames[:, :s]})
+    return task.predict({"frames": frames})
+
+
+served()  # warm-up
+torch.cuda.synchronize()
+fa.reset_launches()
+pred16 = served()
+torch.cuda.synchronize()
+res["launches"] = dict(fa.launches)
+res["bf16_finite"] = all(bool(torch.isfinite(v).all()) for v in pred16.values())
+times = []
+for _ in range(3):
+    torch.cuda.synchronize()
+    torch.distributed.barrier()
+    t0 = time.perf_counter()
+    task.predict({"frames": frames})
+    torch.cuda.synchronize()
+    times.append(1e3 * (time.perf_counter() - t0))
+res["predict_ms"] = times
+mesh.shutdown_distributed()
+print("RESULT " + json.dumps(res), flush=True)
+'''
+
+
+def tp_children(tmp, cfg, weights, frames):
+    """The two ranks of _TP_CHILD (LOCAL_RANK 0 and 1, both on cuda:0;
+    `run_ranks`): their RESULT lines and their fp32 results."""
+    paths = {k: os.path.join(tmp, f"tp_{k}") for k in ("cfg.json", "weights.pt", "frames.npy")}
+    with open(paths["cfg.json"], "w") as f:
+        json.dump(cfg, f)
+    torch.save({k: v.cpu() for k, v in weights.items()}, paths["weights.pt"])
+    np.save(paths["frames.npy"], frames)
+    results, outs = run_ranks(tmp, "p14_tp", _TP_CHILD,
+                              [paths["cfg.json"], paths["weights.pt"], paths["frames.npy"]], [0, 1])
+    return results, [torch.load(o) for o in outs]
+
+
+def tp_checks(rank_out, one, g_moved, before, base):
+    """(name, err, tol, why) of one tp rank's fp32 results against the
+    one-process ones (phase 14(a))."""
+    norm = lambda d: sum(torch.sum(x.double() ** 2) for x in d.values()).sqrt().item()
+    checks = []
+    for key in PRED_KEYS:
+        effect = (one["pred"][key][0, 0] - before[key]).abs().max().item()
+        checks.append((f"predict {key} max_abs_err",
+                       (rank_out["pred"][key] - one["pred"][key]).abs().max().item(),
+                       0.1 * effect, f"0.1 x the adaptation's own effect, {effect:.3e}"))
+    ref = one["fusion_logits"]
+    checks.append(("fusion pred_logits (logit_decoder gathered) max_abs_err",
+                   (rank_out["fusion_logits"] - ref).abs().max().item(),
+                   1e-3 * ref.abs().max().item(), "1e-3 x max|one process|"))
+    head = ["class_embed.weight", "class_embed.bias"]
+    groups = {"class head g (weight gathered, bias)": head,
+              "trunk g (every other adapted leaf)": [k for k in one["g"] if k not in head]}
+    for label, keys in groups.items():
+        b = {k: one["g"][k] for k in keys}
+        err = norm({k: rank_out["g"][k] - b[k] for k in keys}) / norm(b)
+        sens = norm({k: g_moved[k] - b[k] for k in keys}) / norm(b)
+        checks.append((f"{label} ||tp - one|| / ||one||", err, max(10 * sens, GRAD_FLOOR),
+                       f"max of 10 x the one-process step's own change, {sens:.3e}, and "
+                       f"{GRAD_FLOOR:g}"))
+    k = "class_embed.weight"
+    b = one["fast"][k] - base[k]
+    err = (torch.linalg.vector_norm((rank_out["fast"][k] - base[k] - b).double())
+           / torch.linalg.vector_norm(b.double())).item()
+    sens = (torch.linalg.vector_norm((g_moved[k] - one["g"][k]).double())
+            / torch.linalg.vector_norm(one["g"][k].double())).item()
+    checks.append(("class head fast-weight step (gathered) ||tp - one|| / ||one||", err,
+                   max(10 * sens, GRAD_FLOOR), f"max of 10 x its g's own change, {sens:.3e}, "
+                   f"and {GRAD_FLOOR:g}"))
+    return checks
+
+
+def grid_and_host(cfg_dict, fa, C, card, tree):
+    """Phase 14: (a) two gloo ranks share cuda:0 as dp 1 x tp 2 at full
+    width (configs/interactron.yaml, FrozenBatchNorm statistics calibrated
+    on the tree as in phase 11) with the class heads sharded
+    (`shard_heads`): in fp32, `predict`, 4 `next_action` calls and a fusion
+    pass against the one-process ones at phase 4's card-vs-CPU rule (0.1 x
+    the adaptation's own effect; the actions equal; the fusion's gathered
+    logits, a forward on the same weights, to 1e-3 x max|one|), and the
+    inner step's gradient (the class head gathered, and the trunk) and the
+    head's adapted fast weights at phase 7b's rule (10 x the one-process
+    step's own change when the frames move by 1e-6 relative, no less than
+    GRAD_FLOOR): a gather whose backward summed the ranks' gradients, or a
+    head input gradient not summed over tp, would move them by a factor; in
+    bf16 each rank's served episode launches what phase 5's does, and the
+    tp predict's ms stand beside the one-process predict's. (b) The build
+    barrier of `init_distributed`: the rank at local rank 0 builds (the
+    kernels are built, so the build is a no-op) and the other leaves the
+    barrier after that build has ended. (c) The native JPEG loader on the
+    tree: whether it was built (else why), its frames against the PIL path
+    at 2e-6 (tests/test_native_loader.py's tolerance), and the episodes/s
+    of both. Returns the launch counts of rank 0's served episode."""
+    from interactron_tpu_torch.data.episode_dataset import EpisodeDataset
+    from interactron_tpu_torch.native import fastloader_status
+    from interactron_tpu_torch.tasks import InteractronTask
+    from interactron_tpu_torch.utils.config import Config
+
+    img_root, ann = tree
+    t0 = time.perf_counter()
+    calib = EpisodeDataset(img_root, ann, "test")
+    weights = calibrated_weights(cfg_dict, InteractronTask, Config, np.concatenate(
+        [calib.get_item(i)["frames"] for i in (0, 3)]), device="cuda")
+    ep = {"frames": synthetic_frames(1)}
+    cfg32 = json.loads(json.dumps(cfg_dict))
+    cfg32["MODEL"]["DTYPE"] = "float32"
+    model = InteractronTask(Config(cfg32), device="cuda").load_weights(weights)
+    fast, g, prefix = model.adapt(ep)
+    g_moved = {k: v.cpu() for k, v in model.adapt(perturbed(ep))[1].items()}
+    one = {"g": {k: v.cpu() for k, v in g.items()}, "fast": {k: v.cpu() for k, v in fast.items()},
+           "pred": {k: v.cpu() for k, v in model.predict(ep).items()},
+           "actions": [int(model.next_action({"frames": ep["frames"][:, :s]})[0])
+                       for s in range(1, 5)]}
+    with torch.no_grad():
+        before = model.detr_apply(None, prefix[0:1], stage="from_prefix")
+        before = {k: before[k].cpu() for k in PRED_KEYS}
+        one["fusion_logits"] = model.fusion_apply(
+            model.detr_apply(None, model.frames(ep)[0]))["pred_logits"].cpu()
+    base = {k: v.cpu() for k, v in model.detector.named_parameters()}
+    del model, fast, g
+    model = InteractronTask(Config(cfg_dict), device="cuda").load_weights(weights)
+    model.predict(ep)
+    one_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        model.predict(ep)
+        torch.cuda.synchronize()
+        one_ms.append(1e3 * (time.perf_counter() - t1))
+    del model
+    log(f"  (a) one process on cuda:0: the fp32 reference and the bf16 predict in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p14_") as tmp:
+        results, outs = tp_children(tmp, cfg_dict, weights, ep["frames"])
+    del weights
+    sharded = ["detector.class_embed.weight", "fusion.heads.logit_decoder.weight"]
+    want = expected_launches(C)
+    for res, rank_out in zip(results, outs):
+        r = res["rank"]
+        if sorted(res["sharded"]) != sharded or res["backend"] != "gloo":
+            raise AssertionError(f"rank {r} sharded {res['sharded']} over {res['backend']}")
+        for name, err, tol, why in tp_checks(rank_out, one, g_moved, before, base):
+            log(f"  (a) tp rank {r} fp32 vs one process: {name}={err:.3e} tol={tol:.3e} ({why})")
+            if not err <= tol:
+                raise AssertionError(f"phase 14 tp rank {r} {name}: {err} > {tol}")
+        log(f"  (a) tp rank {r} actions {rank_out['actions']}, one process {one['actions']}")
+        if rank_out["actions"] != one["actions"]:
+            raise AssertionError(f"tp rank {r} actions {rank_out['actions']} != "
+                                 f"{one['actions']}")
+        log(f"  (a) tp rank {r} bf16 served episode (4 next_action + predict): launches "
+            f"{res['launches']} (phase 5's {want}); predict finite {res['bf16_finite']}; "
+            f"predict ms {', '.join(f'{t:.2f}' for t in res['predict_ms'])}")
+        if res["launches"] != want or not res["bf16_finite"]:
+            raise AssertionError(f"tp rank {r} launches {res['launches']} != {want}")
+    log(f"  (a) bf16 predict of one episode: tp 2 (two processes sharing cuda:0) median "
+        f"{np.median(results[0]['predict_ms']):.2f} ms on rank 0, one process median "
+        f"{np.median(one_ms):.2f} ms ({', '.join(f'{t:.2f}' for t in one_ms)}); card: {card}")
+
+    builders = [res for res in results if res["build"]]
+    if len(builders) != 1 or builders[0]["local_rank"] != 0:
+        raise AssertionError(f"build barrier: builders {builders}")
+    start, end = builders[0]["build"]["start"], builders[0]["build"]["end"]
+    for res in results:
+        what = (f"built {res['build']['built'] or 'nothing (cached)'} in {end - start:.3f} s"
+                if res["build"] else "did not build")
+        log(f"  (b) build barrier: rank {res['rank']} (local rank {res['local_rank']}) {what}, "
+            f"left the barrier {res['after_barrier'] - end:+.3f} s after the build ended")
+        if res["after_barrier"] < end:
+            raise AssertionError(f"rank {res['rank']} left the barrier before the build ended")
+    log(f"  (a)-(b) the two ranks took {time.perf_counter() - t0:.1f} s")
+
+    mod, why = fastloader_status()
+    log(f"  (c) native JPEG loader: {'built' if mod else 'not built: ' + why}")
+    ds = EpisodeDataset(img_root, ann, "test", resolution=C.IMG_SIZE)
+    n, reps, rates, runs = len(ds), 3, {}, {}
+    native = ds._native
+    for path, loader in (("native", native), ("PIL", None)):
+        ds._native = loader
+        t1 = time.perf_counter()
+        runs[path] = [ds.get_item(i) for _ in range(reps) for i in range(n)]
+        rates[path] = n * reps / (time.perf_counter() - t1)
+    ds._native = native
+    err = max(np.abs(a["frames"] - b["frames"]).max()
+              for a, b in zip(runs["native"][:n], runs["PIL"][:n]))
+    log(f"  (c) get_item over the tree's {n} test episodes of {C.IMG_SIZE} px, one thread: "
+        f"{'native' if mod else 'PIL (no native loader)'} path {rates['native']:.1f} episodes/s, "
+        f"PIL path {rates['PIL']:.1f} episodes/s; frames max_abs_err {err:.3e} tol=2e-6")
+    if not err <= 2e-6:
+        raise AssertionError(f"native frames differ from PIL's: {err}")
+    return {"tp_served_rank0": results[0]["launches"]}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
     parser.add_argument("--phases", default="all",
-                        help="comma-separated phases 3-13 to run after 1 and 2 (a partial run "
+                        help="comma-separated phases 3-14 to run after 1 and 2 (a partial run "
                              "for development: it prints no kernels line and no ok line)")
     args = parser.parse_args(argv)
-    wanted = set(range(3, 14)) if args.phases == "all" else {int(p) for p in
+    wanted = set(range(3, 15)) if args.phases == "all" else {int(p) for p in
                                                              args.phases.split(",")}
     run = lambda phase: phase in wanted
     if not torch.cuda.is_available():
@@ -2399,7 +2686,7 @@ def main(argv=None):
     del weights
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tree_") as tmp:
-        tree = make_tree(tmp, C) if run(11) or run(12) or run(13) else None
+        tree = make_tree(tmp, C) if wanted & {11, 12, 13, 14} else None
         if run(11):
             t11 = time.perf_counter()
             log("[11] train and evaluate from disk: Trainer.train over a JPEG tree, the "
@@ -2419,8 +2706,14 @@ def main(argv=None):
                 "episode data parallelism over torch.distributed")
             paths.update(pretrained_and_parallel(cfg_dict, fa, C, card, tree))
             log(f"  phase 13 took {time.perf_counter() - t13:.1f} s")
+        if run(14):
+            t14 = time.perf_counter()
+            log("[14] the grid and the host modules: tp-sharded class heads on two ranks of "
+                "cuda:0, the kernel build barrier, the native JPEG loader")
+            paths.update(grid_and_host(cfg_dict, fa, C, card, tree))
+            log(f"  phase 14 took {time.perf_counter() - t14:.1f} s")
 
-    if wanted != set(range(3, 14)):
+    if wanted != set(range(3, 15)):
         log(f"total {time.perf_counter() - t_start:.1f} s")
         log(f"partial run (phases 1, 2, {sorted(wanted)}): no kernels line, no ok line")
         return 0

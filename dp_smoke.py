@@ -22,7 +22,17 @@ waits for all of them and exits non-zero if any fails. Each child:
      the rank's own episodes and the data-parallel step (the same work plus
      the all_reduce of the gradients, metrics and path state), each the
      median of `--steps` after a warmup, and the all_reduce of the two
-     gradient buckets alone, with CUDA events.
+     gradient buckets alone, with CUDA events;
+  3. over an even count of at least 4 ranks, a dp x tp grid with tp 2 (the
+     JAX package's multichip dry run picks tp the same way): configs/
+     interactron.yaml at full width with FrozenBatchNorm statistics
+     calibrated on a synthetic JPEG tree of 3*dp-1 episodes (so the test
+     epoch ends in an uneven tail), `Trainer.train` on the grid for 2
+     epochs at BATCH_SIZE dp and INNER_BATCH max(1, dp // 2) with its
+     evaluator, rank 0 alone writing the checkpoints, every rank's weights
+     equal to rank 0's; then, from the trained weights in fp32, the tp-sharded `predict` (`shard_heads`) held
+     against the replicated one at chip_smoke.py's phase 4 rule (0.1 x the
+     adaptation's own effect).
 Rank 0 prints the card's name and power limit, then one JSON line.
 """
 
@@ -163,6 +173,8 @@ def rank_main(args):
             sync()
             out["all_reduce_ms"] = start.elapsed_time(end) / 5
         out["episodes_per_s"] = 4 * w * 1e3 / out["dp_step_ms"]
+    if w >= 4 and w % 2 == 0:
+        out["grid"] = grid_step(base, device, w // 2, 2)
     gathered = [None] * w
     dist.all_gather_object(gathered, out)
     mesh.shutdown_distributed()
@@ -171,6 +183,89 @@ def rank_main(args):
             print(cs.device_line(), flush=True)
         print(json.dumps({"ranks": gathered}), flush=True)
     return 0
+
+
+def grid_step(base, device, dp, tp):
+    """Step 3 on this rank: Trainer.train on the dp x tp grid over a tree
+    of 3*dp-1 episodes, then the tp-sharded predict of the trained weights
+    against the replicated one. Returns this rank's record."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import chip_smoke as cs
+    from interactron_tpu_torch.data.episode_dataset import EpisodeDataset
+    from interactron_tpu_torch.data.synthetic import make_synthetic_dataset
+    from interactron_tpu_torch.engine.trainer import Trainer
+    from interactron_tpu_torch.parallel import mesh
+    from interactron_tpu_torch.tasks import InteractronTask
+    from interactron_tpu_torch.utils.config import Config, build_evaluator, build_model
+
+    t0 = time.perf_counter()
+    r = mesh.rank()
+    size = int(base["MODEL"].get("TEST_RESOLUTION", 300))
+    root = [tempfile.mkdtemp(prefix="dp_smoke_grid_") if r == 0 else None]
+    if r == 0:
+        make_synthetic_dataset(os.path.join(root[0], "tree"), 3 * dp - 1, 6, size)
+    dist.broadcast_object_list(root, 0)
+    tree = (os.path.join(root[0], "tree", "images"),
+            os.path.join(root[0], "tree", "annotations.json"))
+    try:
+        grid = mesh.make_grid(dp=dp, tp=tp)
+        d = cs.disk_config(base, tree, root[0], {
+            ("TRAINER", "BATCH_SIZE"): dp, ("TRAINER", "MAX_EPOCHS"): 2,
+            ("TRAINER", "SAVE_WINDOW"): 1, ("TRAINER", "INNER_BATCH"): max(1, dp // 2),
+            ("TRAINER", "NUM_WORKERS"): 0})
+        calib = EpisodeDataset(*tree, "test", resolution=size)
+        weights = cs.calibrated_weights(d, InteractronTask, Config, np.concatenate(
+            [calib.get_item(i)["frames"] for i in (0, 1)]), device=device)
+        for v in weights.values():
+            dist.broadcast(v, 0)
+        task = build_model(Config(d), device=device).load_weights(weights)
+        trainer = Trainer(task, Config(d), evaluator=build_evaluator(task, Config(d)), grid=grid)
+        trainer.train()
+        rec = {"rank": r, "dp_index": grid.dp_index, "tp_index": grid.tp_index,
+               "files": sorted(os.listdir(trainer.out_dir)), "tokens": trainer.tokens,
+               "train_s": time.perf_counter() - t0}
+        state = {k: v.detach().clone() for k, v in task.state_dict().items()}
+        differ = []
+        for k, v in state.items():
+            ref = v.clone()
+            dist.broadcast(ref, 0)
+            if not torch.equal(ref, v):
+                differ.append(k)
+        rec["leaves_differing_from_rank0"] = len(differ)
+        if differ:
+            raise AssertionError(f"rank {r}: trained weights differ from rank 0's: {differ[:5]}")
+        del task, trainer
+
+        cfg32 = json.loads(json.dumps(d))
+        cfg32["MODEL"]["DTYPE"] = "float32"
+        model = InteractronTask(Config(cfg32), device=device).load_weights(state)
+        ep = {"frames": cs.synthetic_frames(1, size=size)}
+        want = model.predict(ep)
+        with torch.no_grad():
+            before = model.detr_apply(None, model.frames(ep)[:, 0])
+        rec["sharded"] = mesh.shard_heads(model, grid)
+        got = model.predict(ep)
+        for key in ("pred_logits", "pred_boxes"):
+            effect = (want[key][0, 0] - before[key][0]).abs().max().item()
+            err = (got[key] - want[key]).abs().max().item()
+            rec[key] = {"max_abs_err": err, "tol": 0.1 * effect}
+            if not err <= 0.1 * effect:
+                raise AssertionError(f"rank {r}: tp predict {key} {err} > {0.1 * effect}")
+        want_files = ["detector.ckpt", "last_state.ckpt", "logs"] if r == 0 else ["logs"]
+        if rec["files"] != want_files:
+            raise AssertionError(f"rank {r} wrote {rec['files']}")
+        rec["seconds"] = time.perf_counter() - t0
+        return rec
+    finally:
+        dist.barrier()
+        if r == 0:
+            shutil.rmtree(root[0], ignore_errors=True)
 
 
 def main(argv=None):

@@ -8,8 +8,11 @@ The package runs every configuration of `configs/`: the adaptive
 `detr_multiframe`; it trains and evaluates them from an episode tree on
 disk (`data/`, `engine/`, the entry points `train.py` and `evaluate.py`),
 from MODEL.WEIGHTS (a reference `.pth` or a JAX-written `.ckpt`, `utils/`)
-and over torch.distributed ranks (`parallel/`). It imports torch, numpy,
-scipy, PIL and yaml; the JAX package `interactron_tpu` is its numerical
+and over a dp x tp grid of torch.distributed ranks, with the class heads
+split over tp on the served path (`parallel/`); its host tools are the
+native JPEG loader (`native/`), the path storage and plots (`utils/`) and
+the AI2-THOR collector (`collect/`, `collect_data.py`). It imports torch,
+numpy, scipy, PIL and yaml; the JAX package `interactron_tpu` is its numerical
 reference and is never imported here. Module and file names mirror
 `interactron_tpu/` so each counterpart is easy to find.
 """

@@ -11,7 +11,11 @@ Reads the `interactron_v1_{train,test}.json` schema:
 Samples are fixed-shape numpy arrays (frames NHWC float32, targets padded
 to `max_boxes` with a validity mask); the tasks move them to their device.
 Category ids are offset by +1 at load; test mode walks the fixed 5-action
-path. Images are decoded by PIL, on the eval transform as on the train one.
+path. Images are decoded by PIL, but for the deterministic eval transform
+(`train_aug=False`), where `get_item` decodes and normalizes an episode's
+five JPEGs in one call of the native loader (native/, as the JAX package
+does) when it is built; an episode whose images are not at the target
+resolution falls back to PIL.
 """
 
 import concurrent.futures as cf
@@ -21,7 +25,11 @@ import os
 import numpy as np
 from PIL import Image
 
-from interactron_tpu_torch.data.transforms import EvalTransform, TrainTransform
+from interactron_tpu_torch.data.transforms import (
+    EvalTransform,
+    TrainTransform,
+    boxes_to_cxcywh_norm,
+)
 from interactron_tpu_torch.utils import constants as C
 
 FIXED_TEST_PATH = ["RotateLeft", "MoveAhead", "RotateLeft", "MoveBack", "RotateRight"]
@@ -45,22 +53,32 @@ class EpisodeDataset:
         self.max_boxes = max_boxes
         self.resolution = resolution
         self.rng = np.random.RandomState(seed)
+        self._native = None
+        if not train_aug:
+            from interactron_tpu_torch.native import get_fastloader
+
+            self._native = get_fastloader()
 
     def __len__(self):
         return len(self.annotations["data"])
 
-    def _load_state(self, scene, state_name, rng):
-        """The transformed frame of one state, its boxes (normalized cxcywh)
-        and its labels (category id + 1)."""
-        img_path = os.path.join(self.img_dir, scene["scene_name"], state_name + ".jpg")
+    def _img_path(self, scene, state_name):
+        return os.path.join(self.img_dir, scene["scene_name"], state_name + ".jpg")
+
+    def _state_targets(self, scene, state_name):
+        """The xyxy pixel boxes and the labels (category id + 1) of a state."""
         boxes, labels = [], []
         for v in scene["state_table"][state_name]["detections"].values():
             labels.append(v["category_id"] + 1)
             x, y, w, h = v["bbox"]
             boxes.append([x, y, x + w, y + h])
-        boxes = np.asarray(boxes, np.float32).reshape(-1, 4)
-        labels = np.asarray(labels, np.int64)
-        with Image.open(img_path) as frame:
+        return np.asarray(boxes, np.float32).reshape(-1, 4), np.asarray(labels, np.int64)
+
+    def _load_state(self, scene, state_name, rng):
+        """The transformed frame of one state, its boxes (normalized cxcywh)
+        and its labels."""
+        boxes, labels = self._state_targets(scene, state_name)
+        with Image.open(self._img_path(scene, state_name)) as frame:
             return self.transform(frame, boxes, labels, rng)
 
     def _pad_targets(self, boxes, labels):
@@ -74,24 +92,42 @@ class EpisodeDataset:
         pv[:n] = True
         return pb, pl, pv
 
-    def _replay(self, idx, actions, rng):
+    def _native_frames(self, scene, state_names):
+        """The states' frames decoded and normalized in one native call, or
+        None without the loader or when an image is not at the target
+        resolution (the loader's ValueError)."""
+        if self._native is None:
+            return None
+        paths = [self._img_path(scene, s) for s in state_names]
+        try:
+            return self._native.load_images(paths, self.resolution)
+        except ValueError:
+            return None
+
+    def _replay(self, idx, actions, rng, native=False):
         """Frames, padded targets, uid and root image path of the
         len(actions)+1 states that episode `idx` visits from its root under
-        `actions` (names)."""
+        `actions` (names); with `native`, through the native loader where
+        it serves the episode."""
         scene = self.annotations["data"][idx]
-        state_name = scene["root"]
+        state_names = [scene["root"]]
+        for a in actions:
+            state_names.append(scene["state_table"][state_names[-1]]["actions"][a])
+        imgs = self._native_frames(scene, state_names) if native else None
         frames, b_list, l_list, v_list = [], [], [], []
-        for i in range(len(actions) + 1):
-            img, boxes, labels = self._load_state(scene, state_name, rng)
+        for state_name in state_names:
+            if imgs is None:
+                img, boxes, labels = self._load_state(scene, state_name, rng)
+                frames.append(img)
+            else:
+                boxes, labels = self._state_targets(scene, state_name)
+                boxes = boxes_to_cxcywh_norm(boxes, self.resolution, self.resolution)
             pb, pl, pv = self._pad_targets(boxes, labels)
-            frames.append(img)
             b_list.append(pb)
             l_list.append(pl)
             v_list.append(pv)
-            if i < len(actions):
-                state_name = scene["state_table"][state_name]["actions"][actions[i]]
         return {
-            "frames": np.stack(frames).astype(np.float32),
+            "frames": imgs if imgs is not None else np.stack(frames).astype(np.float32),
             "labels": np.stack(l_list),
             "boxes": np.stack(b_list),
             "valid": np.stack(v_list),
@@ -110,7 +146,7 @@ class EpisodeDataset:
         if actions is None:
             actions = [rng.choice(self.annotations["metadata"]["actions"])
                        for _ in range(C.NUM_FRAMES)]
-        sample = self._replay(idx, actions[:C.NUM_FRAMES - 1], rng)
+        sample = self._replay(idx, actions[:C.NUM_FRAMES - 1], rng, native=True)
         sample["actions"] = _action_ids(actions)
         return sample
 

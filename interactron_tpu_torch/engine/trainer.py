@@ -25,13 +25,19 @@ metrics (means over the batch's episodes) do not depend on the split. The
 loop's random stream is its own CPU generator seeded 1234: it cannot match
 JAX's threefry keys.
 
-Over several torch.distributed ranks (parallel/mesh.py; BATCH_SIZE must
-divide among them) each rank loads its slice of every batch and the train
-step is `data_parallel_grads`: gradients summed, metrics averaged, path
-state merged, so every rank holds the same weights. Tokens advance by the
-global batch. A test batch that divides is sharded the same way; a tail
-that does not is computed whole on every rank. Rank r > 0 logs to its own
-directory (suffix `-p{r}`), and only rank 0 writes checkpoints.
+Over several torch.distributed ranks the trainer runs on a dp x tp grid
+(parallel/mesh.py; the dp-only grid of the world unless one is given, as
+JAX's `Trainer(..., mesh=)`; BATCH_SIZE must divide among the dp ranks):
+each rank loads its dp index's slice of every batch and the train step is
+`data_parallel_grads`: gradients summed, metrics averaged and path state
+merged over dp, so every rank holds the same weights. The ranks of one tp
+group load the same slice and compute the same step with the heads whole,
+as JAX replicates the batch over tp, and take their tp index 0's results
+(`replicate_over_tp`: the card's sums are not bitwise reproducible).
+Tokens advance by the global batch. A test batch that divides is sharded
+over dp the same way; a tail that does not is computed whole on every
+rank. Rank r > 0 logs to its own directory (suffix `-p{r}`), and only rank
+0 writes checkpoints.
 """
 
 import math
@@ -44,9 +50,11 @@ import torch
 from interactron_tpu_torch.data.episode_dataset import EpisodeDataset, EpisodeLoader
 from interactron_tpu_torch.parallel.mesh import (
     data_parallel_grads,
+    make_grid,
     mean_metrics,
     merge_path_state,
     rank,
+    replicate_over_tp,
     world_size,
 )
 from interactron_tpu_torch.utils.checkpoint import (
@@ -70,10 +78,11 @@ def global_norm_clip(grads, max_norm):
 class Trainer:
     """`task` trains in place: the loop starts from the weights it holds.
     `evaluator` (engine/evaluator.py), when given, runs after every test
-    epoch. `path_rows` sizes the path state of `train_step` calls made
-    outside `train`, which sizes its own from the datasets."""
+    epoch. `grid` is the dp x tp rank grid (`make_grid()` unless given).
+    `path_rows` sizes the path state of `train_step` calls made outside
+    `train`, which sizes its own from the datasets."""
 
-    def __init__(self, task, config, evaluator=None, path_rows=None):
+    def __init__(self, task, config, evaluator=None, grid=None, path_rows=None):
         t = config.TRAINER
         self.task = task
         self.config = config
@@ -98,10 +107,12 @@ class Trainer:
         self.save_window = int(t.get("SAVE_WINDOW", 0) or 0)
         self.num_workers = int(t.get("NUM_WORKERS", 2))
         self.rank, self.world = rank(), world_size()
-        if self.batch_size % self.world:
+        self.grid = grid or make_grid()
+        if self.batch_size % self.grid.dp:
             raise ValueError(f"BATCH_SIZE {self.batch_size} does not divide among "
-                             f"{self.world} ranks")
-        self.grads_fn = data_parallel_grads(task) if self.world > 1 else task.grads_and_metrics
+                             f"{self.grid.dp} dp ranks")
+        self.grads_fn = (data_parallel_grads(task, self.grid) if self.world > 1
+                         else task.grads_and_metrics)
         self.avg = RunningAverage()
         adam = lambda mods, lr: torch.optim.Adam([p for m in mods for p in m.parameters()],
                                                  lr=lr, betas=(0.9, 0.999), eps=1e-8)
@@ -157,7 +168,7 @@ class Trainer:
             batch, gen, self.path_state, train=True, frame_index=frame_index)
         metrics["grad_norm"] = float(self.apply_grads(grads, scale))
         b, s = batch["frames"].shape[:2]
-        self._advance_tokens(batch.get("_global_rows", b * self.world), s)
+        self._advance_tokens(batch.get("_global_rows", b * self.grid.dp), s)
         return metrics
 
     # ------------------------------------------------------------- the loop
@@ -190,8 +201,8 @@ class Trainer:
         is_train = split == "train"
         loader = EpisodeLoader(self.train_dataset if is_train else self.test_dataset,
                                self.batch_size, shuffle=is_train, num_workers=self.num_workers,
-                               seed=epoch, drop_last=is_train, process_index=self.rank,
-                               process_count=self.world)
+                               seed=epoch, drop_last=is_train,
+                               process_index=self.grid.dp_index, process_count=self.grid.dp)
         acc, nb = {}, 0
         for batch in loader:
             if is_train:
@@ -202,9 +213,11 @@ class Trainer:
                 if self.world > 1:
                     # a sharded batch's metrics are averaged; a tail every
                     # rank computed whole is the same on all of them
-                    if len(batch["frames"]) * self.world == batch["_global_rows"]:
-                        metrics = mean_metrics(metrics)
-                    self.path_state = merge_path_state(self.path_state)
+                    group = self.grid.dp_group
+                    if len(batch["frames"]) * self.grid.dp == batch.get("_global_rows"):
+                        metrics = mean_metrics(metrics, group)
+                    self.path_state = merge_path_state(self.path_state, group)
+                    replicate_over_tp(self.grid, metrics, self.path_state)
             acc = {k: acc.get(k, 0.0) + v for k, v in metrics.items()}
             nb += 1
         means = {k: float(v) / nb for k, v in acc.items()}

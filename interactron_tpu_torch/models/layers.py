@@ -34,6 +34,7 @@ from torch import nn
 
 from interactron_tpu_torch.ops.attention import packed_attention
 from interactron_tpu_torch.ops.flash_attention import draw_seed, dropout_mask
+from interactron_tpu_torch.parallel.mesh import tp_copy, tp_gather
 
 
 def with_episodes(t, rank):
@@ -140,7 +141,12 @@ class FrozenBatchNorm(nn.Module):
 
 class Dense(nn.Module):
     """Linear layer with fp32 params and a compute dtype. `kernel_init` names
-    the JAX package's kernel initialiser: "lecun", "xavier" or "normal02"."""
+    the JAX package's kernel initialiser: "lecun", "xavier" or "normal02".
+
+    A class head split over tp (`parallel/mesh.py::shard_heads` sets
+    `tp_group`) holds its rows of the weight, (out/tp, in) or per episode
+    (E, out/tp, in): it computes its columns, gathers them over the group
+    on the last axis and adds the whole bias."""
 
     def __init__(self, in_features, features, use_bias=True, dtype=torch.float32,
                  kernel_init="lecun"):
@@ -149,6 +155,7 @@ class Dense(nn.Module):
         self.kernel_init = kernel_init
         self.weight = nn.Parameter(torch.zeros(features, in_features))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+        self.tp_group = None
 
     def init_weights(self, gen):
         out_f, in_f = self.weight.shape
@@ -164,9 +171,13 @@ class Dense(nn.Module):
 
     def forward(self, x):
         x = x.to(self.dtype)
+        if self.tp_group is not None:
+            x = tp_copy(x, self.tp_group)
         w = with_episodes(self.weight.to(self.dtype), 2)  # (E, out, in)
         y = torch.bmm(x.reshape(w.shape[0], -1, x.shape[-1]), w.transpose(1, 2))
         y = y.reshape(*x.shape[:-1], w.shape[1])
+        if self.tp_group is not None:
+            y = tp_gather(y, self.tp_group)
         if self.bias is not None:
             yv, bv = by_episode(y, with_episodes(self.bias.to(self.dtype), 1))
             y = (yv + bv).reshape(y.shape)

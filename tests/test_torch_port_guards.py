@@ -1,6 +1,7 @@
 """Guards on the port's boundaries: it imports nothing of JAX, flax,
-msgpack or the JAX package and reads no file under interactron_tpu/ (every
-module imported, one episode loaded; and no import statement of those in
+msgpack or the JAX package, nor matplotlib or ai2thor at module level, and
+reads no file under interactron_tpu/ (every module imported, one episode
+loaded; and no import statement of those in
 any of its sources, chip_smoke.py or dp_smoke.py, at any depth of a
 function), and an
 entry point asked for CUDA on a host without it raises instead of running
@@ -41,6 +42,8 @@ bad = [m for m in sys.modules
        if m in ("jax", "flax", "msgpack", "interactron_tpu")
        or m.startswith(("jax.", "flax.", "msgpack.", "interactron_tpu."))]
 assert not bad, bad
+# the host tools import these only where they are used
+assert not [m for m in sys.modules if m.split(".")[0] in ("matplotlib", "ai2thor")]
 for mod in ("tasks.interactron", "data.transforms", "ops.nms", "engine.ap", "utils.checkpoint",
             "utils.logging", "utils.config", "utils.constants", "utils.flax_msgpack",
             "utils.convert_weights", "parallel.mesh", "utils.profiling", "utils.optim"):

@@ -299,9 +299,11 @@ def test_entry_point_under_torchrun_environment(tree, tmp_path):
 def test_uneven_batch_size_raises(tree, tmp_path, monkeypatch):
     from interactron_tpu_torch.engine import trainer as trainer_mod
 
-    monkeypatch.setattr(trainer_mod, "world_size", lambda: 3)
+    from interactron_tpu_torch.parallel.mesh import Grid
+
+    monkeypatch.setattr(trainer_mod, "make_grid", lambda: Grid(dp=3))
     d = _multiframe_config(tree, str(tmp_path / "x"))
-    with pytest.raises(ValueError, match="does not divide among 3 ranks"):
+    with pytest.raises(ValueError, match="does not divide among 3 dp ranks"):
         build_trainer(build_model(Config(d), device="cpu"), Config(d))
 
 
