@@ -35,9 +35,13 @@ Phases, each of which fails the run (non-zero exit, no "ok" line):
      chunk), with the kernel launch counters checked against the counts the
      path must make, and the episodes/s of both;
   6. device time by kernel over one bf16 predict and one lockstep predict
-     of 10 (torch.profiler), with the fast weights' grouped convolutions;
+     of 10 (torch.profiler), with the fast weights' convolutions in the
+     formulation they run (every trainable k>1 conv, forward and backward:
+     the shifted GEMMs of the default MODEL.SHIFT_CONV on the fast-weight
+     passes, the grouped conv on the inner pass);
   7. one full-width fp32 episode of the second-order meta-train step
-     (`grads_and_metrics`, dropout on): the card against the CPU; (b) at
+     (`grads_and_metrics`, dropout on) at TRAIN_PARITY_DEPTH (3 encoder, 3
+     decoder, 2 fusion layers): the card against the CPU; (b) at
      PARITY_DEPTH with dropout off, a train step of 2 episodes at
      INNER_BATCH 2 against INNER_BATCH 1 on the card and against the CPU;
   8. bf16 training: 3 optimizer steps of 4 episodes at the config's
@@ -47,7 +51,8 @@ Phases, each of which fails the run (non-zero exit, no "ok" line):
      path must make; the regions its mask launches request, with their
      counts, and the mask kernel timed at the largest module-dropout region
      among them;
-  9. device time by kernel over one bf16 train step (torch.profiler);
+  9. device time by kernel over one bf16 train step (torch.profiler), with
+     the fast weights' convolutions as in phase 6;
  10. the split formulation (FLASH_BWD=split SO_MERGED=0): fp32 split vs
      merged on the card (inner gradient, second-order probe, one train
      episode); bf16 served episodes and train steps with their launch counts;
@@ -102,12 +107,31 @@ Phases, each of which fails the run (non-zero exit, no "ok" line):
      barrier of `init_distributed`: local rank 0 builds, the other rank
      waits; (c) the native JPEG loader on phase 11's tree against the PIL
      path, with both paths' episodes/s.
+ 15. the fast-weight conv formulations and the memory switches
+     (`formulations_and_switches`): (a) fp32, one fast-weight conv at
+     layer4's shape in each formulation against the grouped conv (output,
+     dX, per-episode dW); at PARITY_DEPTH, dropout off, the shifted-GEMM
+     (the default), ADAPTED_IM2COL and IM2COL_CONV formulations each
+     against the grouped conv (MODEL.SHIFT_CONV: False) on the card, a
+     batched predict of 2 and a train step of 2 at INNER_BATCH 2 (phases
+     4b's and 7b's rules); (b) fp32 at PARITY_DEPTH, dropout on,
+     TRAINER.REMAT on and MODEL.REMAT_DROPOUT off against the defaults (7b's
+     rule), and with each switch on the split formulation's step twice
+     torch.equal (with cuDNN's deterministic algorithms, as 13(b)); (c)
+     bf16 at full width, each formulation and switch: train ms a step,
+     launches (held to the module structure's but under REMAT) and peak
+     GiB, the same for a lockstep predict of 10, with device ms and the
+     fast-weight convs' device ms profiled for the grouped, shift and
+     ADAPTED_IM2COL cells; one layer4 conv timed in each formulation.
+ 16. (only when asked for, `--phases 16`) the profiles phase 15 leaves out:
+     IM2COL_CONV's and TRAINER.REMAT's cells profiled, and REMAT's peak at a
+     batch of 8 at INNER_BATCH 8, on and off.
 Phases 1-9, 11 and 12 run the default (merged) formulation (but for phase
 11's predict check, which runs split so that two runs are bitwise equal):
 the switches are cleared first; phase 13(b) runs split.
 Prints the kernels' JSON line, then {"ok": true, "device": {...}} last.
 `--phases 3,13` (for development) runs phases 1 and 2 and the listed ones
-and prints neither line.
+and prints neither line; the default, all, is phases 3-15.
 """
 
 import argparse
@@ -788,29 +812,97 @@ def served_path(model, fa, C, episodes=EPISODES, split=False, chunk=1):
     return counts, na_ms, pr_ms, chunk_ms
 
 
-def profile_run(fn):
-    """Device time by kernel over one call of `fn` (after a warm-up call),
-    and the device's idle share (1 - summed kernel time / wall time;
-    overlapping kernels would count twice, and these paths launch on one
-    stream)."""
+def _subtree(e):
+    yield e
+    for c in e.cpu_children:
+        yield from _subtree(c)
+
+
+def fast_weight_conv_events(events):
+    """The profiler events of the fast weights' convolutions, whatever their
+    formulation: every op inside a "fast_weight_conv" range (`profile_run`
+    opens one around each trainable k>1 `Conv2d` forward), and every
+    backward node those ops created, at any order of differentiation: an
+    autograd node's evaluation carries the (thread, sequence number) of the
+    op that made it, and the ops inside it make the nodes of the next
+    order. One chronological pass finds them all."""
+    made, picked = set(), {}
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        if e.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        root = e.name == "fast_weight_conv" or (
+            "evaluate_function" in e.name and (e.fwd_thread, e.sequence_nr) in made)
+        if root and e.id not in picked:
+            for s in _subtree(e):
+                picked[s.id] = s
+                if s.sequence_nr >= 0:
+                    made.add((s.thread, s.sequence_nr))
+    return list(picked.values())
+
+
+@contextlib.contextmanager
+def fast_weight_conv_ranges():
+    """Open a "fast_weight_conv" profiler range around each trainable k>1
+    Conv2d forward (the fast weights' convolutions, in the inner and the
+    fast-weight passes alike), for `fast_weight_conv_events`."""
+    from torch.profiler import record_function
+
+    from interactron_tpu_torch.models.layers import Conv2d
+
+    forward = Conv2d.forward
+
+    def ranged(self, x):
+        if self.frozen or self.kernel_size == 1:
+            return forward(self, x)
+        with record_function("fast_weight_conv"):
+            return forward(self, x)
+
+    Conv2d.forward = ranged
+    try:
+        yield
+    finally:
+        Conv2d.forward = forward
+
+
+def profile_run(fn, warm=True, quiet=False):
+    """Device time by kernel over one call of `fn` (after a warm-up call
+    unless `warm` is False), and the device's idle share (1 - summed kernel
+    time / wall time; overlapping kernels would count twice, and these
+    paths launch on one stream). Returns {"wall_ms", "device_ms",
+    "launches", "conv_ms", "conv_launches"}: conv is the fast weights'
+    convolutions in every formulation, forward and backward
+    (`fast_weight_conv_events`). With `quiet`, logs the summary line only."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
+    with fast_weight_conv_ranges(), profile(activities=[ProfilerActivity.CPU,
+                                                        ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = prof.events()
+    # the device's spans of the "fast_weight_conv" ranges are annotations,
+    # not kernels
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
     by_name = {}
     for e in kernels:
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
     busy = sum(t for _, t in by_name.values())
+    conv = [k for e in fast_weight_conv_events(events) for k in (e.kernels or [])
+            if k.name != "fast_weight_conv"]
+    out = {"wall_ms": wall_ms, "device_ms": busy, "launches": len(kernels),
+           "conv_ms": sum(k.duration for k in conv) / 1e3, "conv_launches": len(conv)}
     log(f"  wall {wall_ms:.2f} ms, device kernels {busy:.2f} ms in {len(kernels)} launches, "
-        f"idle share {1 - busy / wall_ms:.3f} (profiler on)")
+        f"idle share {1 - busy / wall_ms:.3f} (profiler on); fast-weight convolutions (every "
+        f"trainable k>1 conv, forward and backward, in its formulation) {out['conv_ms']:.2f} ms "
+        f"in {out['conv_launches']} launches")
+    if quiet:
+        return out
     # substring matches; no kernel name contains another's
     groups = {"flash_fwd (fwd_kernel, fwd_wgmma_kernel)": ("fwd_kernel", "fwd_wgmma_kernel"),
               "flash_bwd (bwd_kernel, bwd_wgmma_kernel)": ("bwd_kernel", "bwd_wgmma_kernel"),
@@ -827,24 +919,9 @@ def profile_run(fn):
     for gname, keys in groups.items():
         hits = [v for n, v in by_name.items() if any(k in n.lower() for k in keys)]
         log(f"  {gname}: {sum(v[1] for v in hits):.2f} ms in {sum(v[0] for v in hits)} launches")
-    # the fast weights' grouped convolutions (groups = episodes): the kernels
-    # the profiler attributes to a convolution op whose input has more
-    # channels than its weight takes (forward: input, weight; backward:
-    # grad_output, input, weight)
-    grouped = [0, 0.0]
-    for e in prof.events():
-        if "convolution" not in e.name or not getattr(e, "kernels", None):
-            continue
-        shapes = [sh for sh in (e.input_shapes or []) if len(sh) == 4]
-        x, w = ((shapes[1:3] if "backward" in e.name else shapes[:2]) + [None, None])[:2]
-        if x and w and x[1] != w[1]:
-            grouped[0] += len(e.kernels)
-            grouped[1] += sum(k.duration for k in e.kernels) / 1e3
-    log(f"  fast-weight grouped convolutions (groups = episodes): {grouped[1]:.2f} ms in "
-        f"{grouped[0]} launches" + ("" if grouped[0] else
-                                    " (none attributed: not measured where the path has some)"))
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]:
         log(f"  {t:8.3f} ms {n:5d}x {name[:110]}")
+    return out
 
 
 def synthetic_batch(seed, episodes, num_classes, C, size=300):
@@ -1018,7 +1095,6 @@ def batched_parity(cfg, Task, Config, weights, C, what):
         return out
 
     ref = run("cuda", n, batch)
-    norm = lambda d: sum(torch.sum(x.double() ** 2) for x in d.values()).sqrt().item()
     cpu_ref = run("cpu", n, batch)
     for label, other, base, moved in (
             ("card batched vs card one at a time", run("cuda", 1, batch), ref,
@@ -1026,36 +1102,53 @@ def batched_parity(cfg, Task, Config, weights, C, what):
             ("card batched vs CPU batched", cpu_ref, cpu_ref,
              what == "train" and [run("cpu", n, perturbed(batch, s)) for s in SENS_SEEDS])):
         if what == "predict":
-            for key in ("pred_logits", "pred_boxes"):
-                effect = (other["pred"][key] - other["before"][key]).abs().max().item()
-                err = (ref["pred"][key] - other["pred"][key]).abs().max().item()
-                log(f"  fp32 {label}: predict of {n} episodes {key} max_abs_err={err:.3e} "
-                    f"tol={0.1 * effect:.3e} (0.1 x the adaptation's own effect, {effect:.3e})")
-                if not err <= 0.1 * effect:
-                    raise AssertionError(f"batched predict {label} {key}: {err} > {0.1 * effect}")
-            continue
-        whose = "card's" if base is ref else "CPU's"
-        for grp in ref["grads"]:
-            r, o, b, mv = (ref["grads"][grp], other["grads"][grp], base["grads"][grp],
-                           moved[0]["grads"][grp])
-            err = norm({k: r[k] - o[k] for k in r}) / norm(o)
-            sens = norm({k: mv[k] - b[k] for k in b}) / norm(b)
-            tol = max(10 * sens, GRAD_FLOOR)
-            log(f"  fp32 {label}: train step of {n} episodes, {grp} gradient "
-                f"||a - b|| / ||b|| = {err:.3e} tol={tol:.3e} (max of 10 x the {whose} own "
-                f"change, {sens:.3e}, and {GRAD_FLOOR:g})")
+            hold_predict(f"fp32 {label}: predict of {n} episodes", ref, other)
+        else:
+            hold_train(f"fp32 {label}: train step of {n} episodes", ref, other, base, moved,
+                       "card's" if base is ref else "CPU's")
+
+
+def hold_predict(label, got, ref):
+    """Phase 4's rule: predictions to 0.1 x the adaptation's own effect
+    (`ref`'s predict against its unadapted detect, "before")."""
+    for key in ("pred_logits", "pred_boxes"):
+        effect = (ref["pred"][key] - ref["before"][key]).abs().max().item()
+        err = (got["pred"][key] - ref["pred"][key]).abs().max().item()
+        log(f"  {label} {key} max_abs_err={err:.3e} tol={0.1 * effect:.3e} (0.1 x the "
+            f"adaptation's own effect, {effect:.3e})")
+        if not err <= 0.1 * effect:
+            raise AssertionError(f"{label} {key}: {err} > {0.1 * effect}")
+
+
+def _norm(d):
+    return sum(torch.sum(x.double() ** 2) for x in d.values()).sqrt().item()
+
+
+def hold_train(label, got, ref, base, moved, whose):
+    """Phase 7's rule: each gradient group to 10 x `base`'s own change when
+    the frames move by 1e-6 relative (`moved`, a list of such runs; the
+    first sets a gradient's), no less than GRAD_FLOOR; losses to the larger
+    of 1e-4 relative and 10 x the largest change over `moved`."""
+    for grp in got["grads"]:
+        r, o, b, mv = (got["grads"][grp], ref["grads"][grp], base["grads"][grp],
+                       moved[0]["grads"][grp])
+        err = _norm({k: r[k] - o[k] for k in r}) / _norm(o)
+        sens = _norm({k: mv[k] - b[k] for k in b}) / _norm(b)
+        tol = max(10 * sens, GRAD_FLOOR)
+        log(f"  {label}, {grp} gradient ||a - b|| / ||b|| = {err:.3e} tol={tol:.3e} (max of 10 x "
+            f"the {whose} own change, {sens:.3e}, and {GRAD_FLOOR:g})")
+        if not err <= tol:
+            raise AssertionError(f"{label} {grp}: {err} > {tol}")
+    for k, v in ref["m"].items():
+        if "loss" in k or k == "policy_reward":
+            changes = [abs(mv["m"][k] - base["m"][k]) for mv in moved]
+            err, sens = abs(got["m"][k] - v), max(changes)
+            tol = max(1e-4 * abs(v), 10 * sens)
+            log(f"  {label}: metric {k} {got['m'][k]:.6f} vs {v:.6f} err={err:.3e} "
+                f"tol={tol:.3e} (max of 1e-4 x |b| and 10 x the {whose} largest own "
+                f"change, of {', '.join(f'{c:.3e}' for c in changes)})")
             if not err <= tol:
-                raise AssertionError(f"batched train step {label} {grp}: {err} > {tol}")
-        for k, v in other["m"].items():
-            if "loss" in k or k == "policy_reward":
-                changes = [abs(mv["m"][k] - base["m"][k]) for mv in moved]
-                err, sens = abs(ref["m"][k] - v), max(changes)
-                tol = max(1e-4 * abs(v), 10 * sens)
-                log(f"  fp32 {label}: metric {k} {ref['m'][k]:.6f} vs {v:.6f} err={err:.3e} "
-                    f"tol={tol:.3e} (max of 1e-4 x |b| and 10 x the {whose} largest own "
-                    f"change, of {', '.join(f'{c:.3e}' for c in changes)})")
-                if not err <= tol:
-                    raise AssertionError(f"batched train step {label} metric {k}: {err} > {tol}")
+                raise AssertionError(f"{label} metric {k}: {err} > {tol}")
 
 
 def _depths(m):
@@ -1086,30 +1179,44 @@ def expected_train_launches(m, split=False, microbatches=1):
         closure, and the outer gradient has nowhere to go through their
         forward (the DETR encoder's lead back to the unadapted q/k/v). The
         supervisor and detector passes take the first-order kernels in the
-        backbone and encoder. Masks: per DETR pass 3 an encoder layer, 4 + 2
-        attention masks a decoder layer; per fusion pass FusionGPT's
-        embedding's and 2 a block, or FusionXAttn's 4 + 1 a layer.
+        backbone and encoder. Mask sites (dropouts outside the fused
+        kernels): per DETR pass 3 an encoder layer, 4 + 2 attention masks a
+        decoder layer; per fusion pass FusionGPT's embedding's and 2 a
+        block, or FusionXAttn's 4 + 1 a layer. A site launches the mask
+        once in its forward; under MODEL.REMAT_DROPOUT (the default) once
+        more in each backward that runs through it: the supervisor's and
+        the detector's DETR passes once (x2), the inner DETR and fusion
+        passes three times (x4): the inner gradient's backward, the outer
+        backward through that backward's own mask applications, and the
+        outer backward through the forward (every site lies between the
+        unadapted q/k/v or the fusion's weights and the loss).
       * detr_multiframe: per microbatch one detector pass (encoder without
         dropout, decoder with it), one fusion pass, their first-order
-        backward.
+        backward (x2 under MODEL.REMAT_DROPOUT).
       * detr: the step's b*s frames in one detector pass and its backward,
-        whatever `microbatches` is.
-    The ViT's dropout rate is 0: it draws no mask."""
+        whatever `microbatches` is (x2 under MODEL.REMAT_DROPOUT).
+    The ViT's dropout rate is 0: it draws no mask. tests/
+    test_torch_port_formulations.py counts the mask calls of one step on
+    the CPU, at sizes that route each attention as here, against this."""
     enc, dec, layers, vit, xattn = _depths(m)
     first = vit + enc
     fusion_masks = 5 * layers if xattn else 1 + 2 * layers
     detr_masks = 3 * enc + 6 * dec
+    # launches of a mask site in a pass differentiated once, and in the inner passes
+    once, inner_x = (2, 4) if bool(m.get("REMAT_DROPOUT", True)) else (1, 1)
     if m.TYPE == "detr":
         return _formulated({"flash_fwd": first, "flash_bwd": first, "flash_so": 0,
-                            "dropout_mask": detr_masks}, split)
+                            "dropout_mask": once * detr_masks}, split)
     if m.TYPE == "detr_multiframe":
         per = {"flash_fwd": first + layers, "flash_bwd": first + layers, "flash_so": 0,
-               "dropout_mask": 6 * dec + fusion_masks}
+               "dropout_mask": once * (6 * dec + fusion_masks)}
     else:
         inner = first + layers
         per = {"flash_fwd": 4 * inner + 2 * first - vit,
                "flash_bwd": 2 * inner + 2 * first - vit,
-               "flash_so": inner, "dropout_mask": 3 * detr_masks + fusion_masks}
+               "flash_so": inner,
+               # the inner passes' sites, then the supervisor's and the detector's
+               "dropout_mask": inner_x * (detr_masks + fusion_masks) + 2 * once * detr_masks}
     return _formulated({k: v * microbatches for k, v in per.items()}, split)
 
 
@@ -1706,6 +1813,11 @@ def train_from_disk(cfg_dict, fa, C, card, tree):
 OTHER_CONFIGS = ("interactron_random", "single_frame_baseline", "multi_frame_baseline",
                  "interactron_scaled")
 PARITY_DEPTH = {"NUM_ENCODER_LAYERS": 2, "NUM_DECODER_LAYERS": 2, "NUM_LAYERS": 2}
+# the depth of phase 7's one-episode train step card vs CPU: at the
+# config's 6 + 6 + 4 its five fp32 CPU runs took 232 s of a 906.5 s smoke,
+# at 3 + 3 + 2 134.6 s of a 1078.9 s one (H100 80GB HBM3, 700.00 W), and
+# phase 15 needs the time
+TRAIN_PARITY_DEPTH = {"NUM_ENCODER_LAYERS": 3, "NUM_DECODER_LAYERS": 3, "NUM_LAYERS": 2}
 # and of the ViT-B/16 backbone there (12 layers in the model): the fp32
 # train check's CPU runs at 12 took 141 s of the smoke's time
 PARITY_VIT_LAYERS = 2
@@ -2528,13 +2640,351 @@ def grid_and_host(cfg_dict, fa, C, card, tree):
     return {"tp_served_rank0": results[0]["launches"]}
 
 
+# ---------------------------------------------------------------- phase 15
+
+# the fast-weight conv formulations (MODEL keys over the config's) and the
+# memory switches of phase 15
+FORMULATIONS = {"grouped": {"SHIFT_CONV": False}, "shift": {},
+                "adapted_im2col": {"ADAPTED_IM2COL": True}, "im2col": {"IM2COL_CONV": True}}
+
+
+def with_keys(cfg, model=(), trainer=()):
+    """A copy of the config dict with MODEL and TRAINER keys set."""
+    c = json.loads(json.dumps(cfg))
+    c["MODEL"].update(model)
+    c["TRAINER"].update(trainer)
+    return c
+
+
+def _parity_run(cfg, Task, Config, weights, batch, what, env=(), train=False):
+    """fp32 on the card: a predict of the batch's episodes in one call (with
+    the unadapted detect, "before"), or a train step of them in one
+    microbatch (frame indices 2, 3; dropout on with `train`, from a seeded
+    CPU generator)."""
+    with switches(**dict(env)):
+        model = Task(Config(cfg), device="cuda").load_weights(weights)
+        if what == "predict":
+            pred = model.predict({"frames": batch["frames"]})
+            with torch.no_grad():
+                before = model.detr_apply(None, model.frames(batch)[:, 0])
+            return {"pred": {k: v.cpu() for k, v in pred.items()},
+                    "before": {k: before[k][:, None].cpu() for k in pred}}
+        gen = torch.Generator().manual_seed(11) if train else None
+        grads, m, _ = model.grads_and_metrics(batch, gen, model.init_path_state(8), train=train,
+                                              frame_index=[2, 3][:len(batch["frames"])])
+        return {"grads": {grp: {n: x.cpu() for n, x in d.items()} for grp, d in grads.items()},
+                "m": {k: float(v) for k, v in m.items()}}
+
+
+def _equal_runs(a, b):
+    return (a["m"] == b["m"] and all(torch.equal(x, b["grads"][grp][n])
+                                     for grp, d in a["grads"].items() for n, x in d.items()))
+
+
+def bf16_cell(cfg, Task, Config, Trainer, weights, fa, C, model_keys=(), trainer_keys=(),
+              episodes=4, steps=3, predict=True, profile=True):
+    """Phase 15(c): full width, bf16, one warm-up step and `steps` timed
+    train steps of `episodes` episodes (dropout on), each step's launches,
+    peak GiB over the timed steps, with `profile` a profiled step; then with
+    `predict` a lockstep predict of CHUNK (a warm-up call, 2 timed, with
+    `profile` a profiled one) with its launches and peak. The launches are
+    held to the module structure's unless the cell checkpoints (its
+    recomputation relaunches)."""
+    from interactron_tpu_torch.models.layers import conv_calls
+
+    c = with_keys(cfg, model_keys, trainer_keys)
+    model = Task(Config(c), device="cuda").load_weights(weights)
+    trainer = Trainer(model, model.config, path_rows=64)
+    gen = torch.Generator().manual_seed(0)
+    batches = [synthetic_batch(20 + i, episodes, c["MODEL"]["NUM_CLASSES"], C)
+               for i in range(steps + 1)]
+    trainer.train_step(batches[0], gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    conv_calls.update(dict.fromkeys(conv_calls, 0))
+    step_ms = []
+    for b in batches[1:]:
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(b, gen)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        if not all(np.isfinite(float(v)) for v in metrics.values()):
+            raise AssertionError(f"non-finite train metrics {metrics}")
+    out = {"train_ms": float(np.mean(step_ms)), "train_launches": dict(fa.launches),
+           "train_convs": {k: n // steps for k, n in conv_calls.items() if n},
+           "train_peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    per_step = {k: n // steps for k, n in out["train_launches"].items()}
+    if not dict(trainer_keys).get("REMAT"):
+        want = expected_train_launches(model.config.MODEL, False,
+                                       len(model.microbatches(episodes)))
+        if per_step != want or any(n % steps for n in out["train_launches"].values()):
+            raise AssertionError(f"train launches a step {per_step} != {want}")
+    if profile:
+        out["train_profile"] = profile_run(lambda: trainer.train_step(batches[0], gen), warm=False,
+                                           quiet=True)
+    if predict:
+        frames = np.concatenate([synthetic_frames(200 + e) for e in range(CHUNK)])
+        model.predict({"frames": frames})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        conv_calls.update(dict.fromkeys(conv_calls, 0))
+        pr_ms = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            pred = model.predict({"frames": frames})
+            torch.cuda.synchronize()
+            pr_ms.append(1e3 * (time.perf_counter() - t0))
+        if not all(torch.isfinite(v).all() for v in pred.values()):
+            raise AssertionError("non-finite lockstep predictions")
+        out.update(predict_ms=float(np.mean(pr_ms)), predict_launches=dict(fa.launches),
+                   predict_convs={k: n // 2 for k, n in conv_calls.items() if n},
+                   predict_peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        want = {k: 2 * n for k, n in expected_predict_launches(model.config.MODEL).items()}
+        if out["predict_launches"] != want:
+            raise AssertionError(f"predict launches {out['predict_launches']} != {want}")
+        if profile:
+            out["predict_profile"] = profile_run(lambda: model.predict({"frames": frames}),
+                                                 warm=False, quiet=True)
+    del model, trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def _layer4_conv(e, f, dtype):
+    """A fast-weight conv at layer4's shape (C = O = 512, 19x19, dilation 2)
+    with E per-episode kernels, and seeded frames (E*F, ...), output
+    gradients and kernels on the card; `run(scope)` gives its output, dX and
+    per-episode dW inside a conv scope."""
+    from torch.func import functional_call
+
+    from interactron_tpu_torch.models import layers as tl
+
+    conv = tl.Conv2d(512, 512, 3, 1, 2, 2, dtype=dtype).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    w = (torch.randn((e, 512, 512, 3, 3), device="cuda", generator=gen) * 0.02).to(dtype)
+    x = torch.randn((e * f, 512, 19, 19), device="cuda", generator=gen).to(dtype)
+    dy = torch.randn((e * f, 512, 19, 19), device="cuda", generator=gen).to(dtype)
+    w.requires_grad_(True)
+    x.requires_grad_(True)
+
+    def run(scope):
+        with scope:
+            y = functional_call(conv, {"weight": w}, (x,))
+        return (y, *torch.autograd.grad(y, (x, w), dy))
+
+    return run
+
+
+def _conv_scope(name):
+    """The conv scope of a formulation: "grouped", "shift" or "im2col"."""
+    from interactron_tpu_torch.models import layers as tl
+
+    return {"grouped": contextlib.nullcontext, "shift": tl.episode_shift_convs,
+            "im2col": tl.im2col_convs}[name]()
+
+
+def conv_layer_parity():
+    """Phase 15(a): one fast-weight conv at layer4's shape in fp32 (TF32
+    off), E=4 episodes of F=5 frames: the shift and im2col forms' output, dX
+    and per-episode dW against the grouped conv's, each to 1e-5 of the
+    grouped one's largest entry (fp32 sums in another order; a wrong tap,
+    flip or episode is O(1))."""
+    run = _layer4_conv(4, 5, torch.float32)
+    ref = run(_conv_scope("grouped"))
+    for name in ("shift", "im2col"):
+        got = run(_conv_scope(name))
+        for what, a, b in zip(("output", "dX", "dW"), got, ref):
+            err = ((a - b).abs().max() / b.abs().max()).item()
+            log(f"  (a) fp32 layer4 conv, {name} vs grouped: {what} max_abs_err / max|grouped| "
+                f"{err:.3e} tol=1e-5")
+            if not err <= 1e-5:
+                raise AssertionError(f"layer4 conv {name} {what}: {err}")
+    del run, ref
+    torch.cuda.empty_cache()
+
+
+def conv_forms_timed():
+    """Phase 15(c): one fast-weight conv at layer4's shape in bf16, forward
+    and backward (dX and per-episode dW), device ms in each formulation, at
+    a train microbatch (E=4 episodes of F=5 frames) and at a lockstep
+    predict's frame-0 detect (E=10, F=1), against the bound at the bf16
+    peak; each form's results held to the grouped conv's at 2e-2 of its
+    largest entry (bf16 rounding, the sums in another order)."""
+    for e, f in ((4, 5), (10, 1)):
+        run = _layer4_conv(e, f, torch.bfloat16)
+        ref = run(_conv_scope("grouped"))
+        times = {}
+        for name in ("grouped", "shift", "im2col"):
+            got = run(_conv_scope(name))
+            err = max(((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+                      for a, b in zip(got, ref))
+            if not err <= 2e-2:
+                raise AssertionError(f"bf16 layer4 conv {name}: {err}")
+            times[name] = cuda_ms(lambda: run(_conv_scope(name)), iters=10)
+        bound = 3 * 2 * e * f * 361 * 512 * 512 * 9 / PEAK_FLOPS * 1e3
+        log(f"  one layer4 conv, E={e} F={f}, forward + backward, device ms: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
+            + f"; bound {bound:.4f} (bf16 peak)")
+        del run, ref
+    torch.cuda.empty_cache()
+
+
+def _cell_line(name, r, prof, pred):
+    """One bf16 cell's log line (and its Conv2d forwards by formulation
+    held to the cell's)."""
+    convs = {what: r.get(f"{what}_convs", {}) for what in ("train", "predict")}
+    # IM2COL_CONV leaves the fast-weight passes' stride-1 3x3 convs to the
+    # default SHIFT_CONV, which JAX's Conv2d tries first
+    want = {"grouped": set(), "adapted_im2col": {"im2col"},
+            "im2col": {"shift", "im2col"}}.get(name, {"shift"})
+    if {f for d in convs.values() for f in ("shift", "im2col") if d.get(f)} != want:
+        raise AssertionError(f"{name}: Conv2d forwards by formulation {convs}, not {want}")
+    line = (f"  {name}: Conv2d forwards by formulation, a train step {convs['train']}, a "
+            f"predict {convs['predict']}; train {r['train_ms']:.1f} ms a step of 4, peak "
+            f"{r['train_peak_gib']:.2f} GiB, launches a step "
+            f"{ {k: v // 3 for k, v in r['train_launches'].items() if v} }")
+    if prof:
+        tp = r["train_profile"]
+        line += (f", device {tp['device_ms']:.2f} ms profiled, fast-weight convs "
+                 f"{tp['conv_ms']:.2f} ms in {tp['conv_launches']} launches")
+    if pred:
+        line += (f"; lockstep predict of {CHUNK} {r['predict_ms']:.2f} ms, peak "
+                 f"{r['predict_peak_gib']:.2f} GiB")
+        if prof:
+            pp = r["predict_profile"]
+            line += (f", device {pp['device_ms']:.2f} ms, fast-weight convs "
+                     f"{pp['conv_ms']:.2f} ms in {pp['conv_launches']} launches")
+    return line
+
+
+def formulations_and_switches(cfg_dict, pcfg, Task, Config, Trainer, weights, pweights, C, fa,
+                              card, shift_profiles):
+    """Phase 15: the fast-weight conv formulations and the memory switches.
+    (a) fp32 at PARITY_DEPTH, dropout off: each formulation's batched
+    predict of BATCHED episodes and train step of BATCHED at INNER_BATCH
+    BATCHED against the grouped formulation's on the card (phase 4b's and
+    7b's rules; the sensitivity from the grouped step on frames moved by
+    1e-6). (b) fp32 at PARITY_DEPTH, dropout on: the train step with
+    TRAINER.REMAT on and with MODEL.REMAT_DROPOUT off against the defaults
+    (7b's rule), and in the split formulation with cuDNN's deterministic
+    algorithms the same step twice bit-equal with each switch on. (c) bf16
+    at full width: each formulation's and
+    each switch's train and lockstep predict times, device ms, fast-weight
+    conv ms, launches and peak memory (`bf16_cell`; the switches' cells
+    without predict, which they leave as it is, and MODEL.REMAT_DROPOUT's
+    without a profile; the default's profiles are phases 9's and 6's,
+    `shift_profiles`, where they ran); REMAT's peak also at a batch of 8 at
+    INNER_BATCH 8. Returns the launch counts by path."""
+    n = BATCHED
+    batch = synthetic_batch(7, n, pcfg["MODEL"]["NUM_CLASSES"], C)
+    cfg_n = with_keys(pcfg, trainer={"INNER_BATCH": n})
+    t0 = time.perf_counter()
+    conv_layer_parity()
+    log(f"  (a) fp32 at depth {PARITY_DEPTH}, {n} episodes, dropout off: each formulation "
+        "against the grouped conv on the card")
+    ref = {what: _parity_run(with_keys(cfg_n, FORMULATIONS["grouped"]), Task, Config, pweights,
+                             batch, what) for what in ("predict", "train")}
+    moved = _parity_run(with_keys(cfg_n, FORMULATIONS["grouped"]), Task, Config, pweights,
+                        perturbed(batch), "train")
+    for name, keys in FORMULATIONS.items():
+        if name == "grouped":
+            continue
+        c = with_keys(cfg_n, keys)
+        hold_predict(f"fp32 {name} vs grouped: predict of {n} episodes",
+                     _parity_run(c, Task, Config, pweights, batch, "predict"), ref["predict"])
+        hold_train(f"fp32 {name} vs grouped: train step of {n} episodes",
+                   _parity_run(c, Task, Config, pweights, batch, "train"), ref["train"],
+                   ref["train"], [moved], "grouped step's")
+    log(f"  (a) took {time.perf_counter() - t0:.1f} s")
+
+    log(f"  (b) fp32 at depth {PARITY_DEPTH}, dropout on: TRAINER.REMAT and MODEL.REMAT_DROPOUT")
+    t0 = time.perf_counter()
+    switch_keys = {"REMAT on": ((), {"REMAT": True}),
+                   "REMAT_DROPOUT off": ({"REMAT_DROPOUT": False}, ())}
+    run = lambda m, t, b, env=(): _parity_run(with_keys(cfg_n, m, t), Task, Config, pweights, b,
+                                              "train", env, train=True)
+    base, moved = run((), (), batch), run((), (), perturbed(batch))
+    for label, (m, t) in switch_keys.items():
+        hold_train(f"fp32 {label} vs the defaults: train step of {n} episodes, dropout on",
+                   run(m, t, batch), base, base, [moved], "defaults' step's")
+    # bitwise reproducible: the split formulation, and cuDNN's deterministic
+    # algorithms (as phase 13(b)); without them two fp32 steps differ in
+    # every formulation, the grouped one too
+    split, det = {}, torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for label, (m, t) in (("REMAT on", switch_keys["REMAT on"]),
+                              ("REMAT_DROPOUT on", ((), ()))):
+            a, b = (run(m, t, batch, SPLIT) for _ in range(2))
+            same = _equal_runs(a, b)
+            split[label] = a
+            log(f"  split formulation, cuDNN deterministic, {label}: the same step twice "
+                f"torch.equal: {same}")
+            if not same:
+                raise AssertionError(f"split formulation, {label}: two runs of one step differ")
+    finally:
+        torch.backends.cudnn.deterministic = det
+    log(f"  split formulation: REMAT on and off torch.equal: "
+        f"{_equal_runs(split['REMAT on'], split['REMAT_DROPOUT on'])} (printed only)")
+    log(f"  (b) took {time.perf_counter() - t0:.1f} s")
+
+    log(f"  (c) bf16 at full width: 3 train steps of 4 episodes at INNER_BATCH "
+        f"{cfg_dict['TRAINER']['INNER_BATCH']} and a lockstep predict of {CHUNK} a cell")
+    t0 = time.perf_counter()
+    # name: (MODEL keys, TRAINER keys, profile, predict); the switches
+    # leave predict as it is (no dropout, no checkpoint); phase 16 profiles
+    # the cells not profiled here
+    cells = {name: (keys, (), name != "im2col", True) for name, keys in FORMULATIONS.items()}
+    cells.update({"REMAT on": ((), {"REMAT": True}, False, False),
+                  "REMAT_DROPOUT off": ({"REMAT_DROPOUT": False}, (), False, False)})
+    paths = {}
+    for name, (m, t, prof, pred) in cells.items():
+        t1 = time.perf_counter()
+        reuse = name == "shift" and len(shift_profiles) == 2
+        r = bf16_cell(cfg_dict, Task, Config, Trainer, weights, fa, C, m, t, predict=pred,
+                      profile=prof and not reuse)
+        if reuse:
+            r.update(train_profile=shift_profiles["train"],
+                     predict_profile=shift_profiles["predict"])
+        paths[f"p15 {name} train"] = r["train_launches"]
+        if pred:
+            paths[f"p15 {name} predict"] = r["predict_launches"]
+        log(_cell_line(name, r, prof, pred) + (" (profiles: phases 9 and 6)" if reuse else "")
+            + f" ({time.perf_counter() - t1:.1f} s)")
+    conv_forms_timed()
+    log(f"  (c) took {time.perf_counter() - t0:.1f} s; card: {card}")
+    return paths
+
+
+def remat_profiles(cfg_dict, Task, Config, Trainer, weights, C, fa, card):
+    """Phase 16 (only when asked for): the bf16 cells phase 15 does not
+    profile, IM2COL_CONV's and TRAINER.REMAT's, profiled; and REMAT's peak
+    at a batch of 8 at INNER_BATCH 8, on and off."""
+    for name, m, t, pred in (("im2col", FORMULATIONS["im2col"], (), True),
+                             ("REMAT on", (), {"REMAT": True}, False)):
+        t1 = time.perf_counter()
+        r = bf16_cell(cfg_dict, Task, Config, Trainer, weights, fa, C, m, t, predict=pred)
+        log(_cell_line(name, r, True, pred) + f" ({time.perf_counter() - t1:.1f} s)")
+    for remat in (False, True):
+        r = bf16_cell(cfg_dict, Task, Config, Trainer, weights, fa, C, (),
+                      {"INNER_BATCH": 8, "REMAT": remat} if remat else {"INNER_BATCH": 8},
+                      episodes=8, steps=1, predict=False, profile=False)
+        log(f"  REMAT {'on' if remat else 'off'} at a batch of 8, INNER_BATCH 8: train "
+            f"{r['train_ms']:.1f} ms a step (one after a warm-up), peak "
+            f"{r['train_peak_gib']:.2f} GiB")
+    log(f"  card: {card}")
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
     parser.add_argument("--phases", default="all",
-                        help="comma-separated phases 3-14 to run after 1 and 2 (a partial run "
-                             "for development: it prints no kernels line and no ok line)")
+                        help="comma-separated phases 3-16 to run after 1 and 2 (a partial run "
+                             "for development: it prints no kernels line and no ok line); all "
+                             "is 3-15")
     args = parser.parse_args(argv)
-    wanted = set(range(3, 15)) if args.phases == "all" else {int(p) for p in
+    wanted = set(range(3, 16)) if args.phases == "all" else {int(p) for p in
                                                              args.phases.split(",")}
     run = lambda phase: phase in wanted
     if not torch.cuda.is_available():
@@ -2572,6 +3022,7 @@ def main(argv=None):
     sass_check(cuda_build)
 
     kres, paths = {}, {}
+    shift_profiles = {}  # phases 6 and 9 profile the default formulation for phase 15
     if run(3):
         log("[3] kernels vs plain versions")
         t3 = time.perf_counter()
@@ -2582,9 +3033,9 @@ def main(argv=None):
 
     cfg_dict = get_config("configs/interactron.yaml").to_dict()
     weights = (calibrated_weights(cfg_dict, InteractronTask, Config)
-               if wanted & set(range(4, 11)) else None)
-    if run(4) or run(7):
-        # phases 4b and 7b: fp32 at PARITY_DEPTH, weights calibrated there
+               if wanted & {*range(4, 11), 15, 16} else None)
+    if run(4) or run(7) or run(15):
+        # phases 4b, 7, 7b and 15: fp32 at PARITY_DEPTH, weights calibrated there
         pcfg = json.loads(json.dumps(cfg_dict))
         pcfg["MODEL"].update(PARITY_DEPTH, DTYPE="float32")
         pweights = calibrated_weights(pcfg, InteractronTask, Config, device="cuda")
@@ -2619,17 +3070,19 @@ def main(argv=None):
         frames = synthetic_frames(200)
         profile_run(lambda: model.predict({"frames": frames}))
         frames = np.concatenate([synthetic_frames(200 + e) for e in range(CHUNK)])
-        profile_run(lambda: model.predict({"frames": frames}))
+        shift_profiles["predict"] = profile_run(lambda: model.predict({"frames": frames}))
         del model
 
     if run(7):
-        log("[7] full-width fp32 train step (one episode, dropout on), card vs CPU")
-        train_parity(cfg_dict, InteractronTask, Config, weights, C)
+        log(f"[7] full-width fp32 train step (one episode, dropout on) at depth "
+            f"{TRAIN_PARITY_DEPTH}, card vs CPU")
+        tcfg = json.loads(json.dumps(cfg_dict))
+        tcfg["MODEL"].update(TRAIN_PARITY_DEPTH, DTYPE="float32")
+        train_parity(tcfg, InteractronTask, Config,
+                     calibrated_weights(tcfg, InteractronTask, Config, device="cuda"), C)
         log(f"  (b) a batched train step of {BATCHED} episodes (INNER_BATCH {BATCHED}) at depth "
             f"{PARITY_DEPTH}, dropout off")
         batched_parity(pcfg, InteractronTask, Config, pweights, C, "train")
-    if run(4) or run(7):
-        del pweights
 
     if run(8) or run(9):
         log(f"[8] bf16 training: 3 steps of 4 episodes at INNER_BATCH "
@@ -2652,7 +3105,7 @@ def main(argv=None):
         log("[9] where the time goes: one bf16 train step of 4 episodes (one microbatch) under "
             "torch.profiler")
         gen = torch.Generator().manual_seed(1)
-        profile_run(lambda: trainer.train_step(batch, gen))
+        shift_profiles["train"] = profile_run(lambda: trainer.train_step(batch, gen))
         del model, trainer
 
     if run(10):
@@ -2683,7 +3136,6 @@ def main(argv=None):
             profile_run(lambda: trainer.train_step(batch, gen))
         log(f"  phase 10 took {time.perf_counter() - t10:.1f} s")
         del model, trainer
-    del weights
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tree_") as tmp:
         tree = make_tree(tmp, C) if wanted & {11, 12, 13, 14} else None
@@ -2712,8 +3164,25 @@ def main(argv=None):
                 "cuda:0, the kernel build barrier, the native JPEG loader")
             paths.update(grid_and_host(cfg_dict, fa, C, card, tree))
             log(f"  phase 14 took {time.perf_counter() - t14:.1f} s")
+    if run(15):
+        t15 = time.perf_counter()
+        log("[15] the fast-weight conv formulations (MODEL.SHIFT_CONV, ADAPTED_IM2COL, "
+            "IM2COL_CONV) and the memory switches (TRAINER.REMAT, MODEL.REMAT_DROPOUT)")
+        paths.update(formulations_and_switches(cfg_dict, pcfg, InteractronTask, Config, Trainer,
+                                               weights, pweights, C, fa, card,
+                                               shift_profiles))
+        log(f"  phase 15 took {time.perf_counter() - t15:.1f} s")
+    if run(16):
+        t16 = time.perf_counter()
+        log("[16] the profiles phase 15 leaves out: IM2COL_CONV and TRAINER.REMAT profiled, "
+            "REMAT at a batch of 8")
+        remat_profiles(cfg_dict, InteractronTask, Config, Trainer, weights, C, fa, card)
+        log(f"  phase 16 took {time.perf_counter() - t16:.1f} s")
+    if run(4) or run(7) or run(15):
+        del pweights
+    del weights
 
-    if wanted != set(range(3, 15)):
+    if wanted != set(range(3, 16)):
         log(f"total {time.perf_counter() - t_start:.1f} s")
         log(f"partial run (phases 1, 2, {sorted(wanted)}): no kernels line, no ok line")
         return 0

@@ -18,6 +18,7 @@ from interactron_tpu_torch.models.layers import (
     Dropout,
     LayerNorm,
     MultiHeadAttention,
+    remat_call,
     with_episodes,
 )
 from interactron_tpu_torch.models.position_encoding import sine_position_embedding
@@ -74,9 +75,11 @@ class TransformerDecoderStack(nn.Module):
                                                       dropout_rate, dtype))
         self.norm = LayerNorm(d_model)
 
-    def forward(self, tgt, memory, query_pos, pos, gen=None):
+    def forward(self, tgt, memory, query_pos, pos, gen=None, remat=False):
         for i in range(self.num_layers):
-            tgt = getattr(self, f"layer{i}")(tgt, memory, query_pos, pos, gen)
+            layer = getattr(self, f"layer{i}")
+            tgt = (remat_call(layer, tgt, memory, query_pos, pos, gen=gen) if remat
+                   else layer(tgt, memory, query_pos, pos, gen))
         return self.norm(tgt)
 
 
@@ -109,7 +112,9 @@ class DETR(nn.Module):
     With a generator `gen` the dropout of the backbone and the encoder is
     on, and the decoder's is on with `decoder_gen`, which is `gen` unless
     given (train mode; the multi-frame baseline drops in the decoder
-    alone). `image_size` sizes the ViT's position table.
+    alone). `image_size` sizes the ViT's position table. `remat`
+    checkpoints the ResNet's trainable bottlenecks and each encoder and
+    decoder layer (TRAINER.REMAT on the train passes).
     """
 
     def __init__(self, num_classes, num_queries=C.NUM_QUERIES, d_model=256, num_heads=8,
@@ -145,7 +150,7 @@ class DETR(nn.Module):
         with torch.no_grad():
             nn.init.normal_(self.query_embed, 0.0, 1.0, generator=gen)
 
-    def forward(self, images, stage="all", gen=None, decoder_gen=None):
+    def forward(self, images, stage="all", gen=None, decoder_gen=None, remat=False):
         if stage not in ("all", "frozen_prefix", "from_prefix"):
             raise ValueError(f"unknown stage {stage!r}")
         if decoder_gen is None:
@@ -164,7 +169,8 @@ class DETR(nn.Module):
             else:
                 if stage == "frozen_prefix":
                     return self.backbone(x, stage="prefix")
-                feats = self.backbone(x, stage="trunk" if stage == "from_prefix" else "all")
+                feats = self.backbone(x, stage="trunk" if stage == "from_prefix" else "all",
+                                      remat=remat)
             feats = feats.permute(0, 2, 3, 1)
         b, h, w, _ = feats.shape
         src = self.input_proj(feats).reshape(b, h * w, self.d_model)
@@ -173,11 +179,14 @@ class DETR(nn.Module):
 
         memory = src
         for i in range(self.num_encoder_layers):
-            memory = getattr(self, f"encoder_layer{i}")(memory, pos, gen)
+            layer = getattr(self, f"encoder_layer{i}")
+            memory = (remat_call(layer, memory, pos, gen=gen) if remat
+                      else layer(memory, pos, gen))
 
         qe = with_episodes(self.query_embed.to(self.dtype), 2)  # each episode's frames
         query_pos = qe[:, None].expand(-1, b // qe.shape[0], -1, -1).reshape(b, *qe.shape[1:])
-        hs = self.decoder(torch.zeros_like(query_pos), memory, query_pos, pos, decoder_gen)
+        hs = self.decoder(torch.zeros_like(query_pos), memory, query_pos, pos, decoder_gen,
+                          remat=remat)
         logits = self.class_embed(hs)
         boxes = torch.sigmoid(self.bbox_embed(hs).float())
         return {

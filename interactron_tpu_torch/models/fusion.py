@@ -26,6 +26,7 @@ from interactron_tpu_torch.models.layers import (
     Dropout,
     LayerNorm,
     MultiHeadAttention,
+    remat_call,
 )
 from interactron_tpu_torch.models.position_encoding import sincos_1d, sincos_2d
 from interactron_tpu_torch.utils import constants as C
@@ -119,9 +120,10 @@ class FusionGPT(_Embed):
             _init_action_tokens(self.action_tokens, gen)
             self.seq_pos_embed.zero_()
 
-    def forward(self, x, gen=None):
+    def forward(self, x, gen=None, remat=False):
         """x: dict of (b, s, ...) tensors `embedded_memory_features`,
-        `box_features`, `pred_logits`, `pred_boxes`; dropout on with `gen`."""
+        `box_features`, `pred_logits`, `pred_boxes`; dropout on with `gen`;
+        `remat` checkpoints each block (TRAINER.REMAT)."""
         dt = self.dtype
         img, pred_emb = self.embed(x)
         b, s, p, e = pred_emb.shape
@@ -134,7 +136,8 @@ class FusionGPT(_Embed):
         h = self.dropout(seq + self.seq_pos_embed[None, :t].to(dt), gen)
         out_len = n_preds + C.NUM_FRAMES  # the only positions the heads read
         for i in range(self.num_layers):
-            h = getattr(self, f"block{i}")(h, out_len if i == self.num_layers - 1 else None, gen)
+            block, q_len = getattr(self, f"block{i}"), out_len if i == self.num_layers - 1 else None
+            h = remat_call(block, h, q_len, gen=gen) if remat else block(h, q_len, gen)
         y = self.head(self.ln_f(h))
         y_preds = y[:, -out_len:-C.NUM_FRAMES].reshape(b, s, p, -1)
         y_actions = y[:, -C.NUM_FRAMES:-1].reshape(b, C.NUM_ACTIONS, -1)
@@ -180,8 +183,9 @@ class FusionXAttn(_Embed):
             self._pos[key] = torch.as_tensor(pos, dtype=self.dtype, device=device)[None]
         return self._pos[key]
 
-    def forward(self, x, gen=None):
-        """x as FusionGPT's; dropout on with `gen`."""
+    def forward(self, x, gen=None, remat=False):
+        """x as FusionGPT's; dropout on with `gen`; `remat` checkpoints each
+        layer of the stack."""
         dt = self.dtype
         img, pred_emb = self.embed(x)
         b, s, p, e = pred_emb.shape
@@ -196,7 +200,7 @@ class FusionXAttn(_Embed):
                          self.action_tokens.to(dt).expand(b, -1, -1)], dim=1)
         query_pos = self.query_embed.to(dt)[None].expand(b, -1, -1)
         pos = self.memory_positions(img.shape[2], memory.device)
-        y = self.transformer(tgt, memory, query_pos, pos, gen)
+        y = self.transformer(tgt, memory, query_pos, pos, gen, remat=remat)
         y_preds = y[:, : -C.NUM_FRAMES].reshape(b, s, p, -1)
         y_actions = y[:, -C.NUM_FRAMES:-1].reshape(b, C.NUM_ACTIONS, -1)
         return self.heads(y_preds, y_actions)

@@ -24,17 +24,114 @@ frames. There is one path: a shared weight is the one-episode case
 (`with_episodes`), whose F is the whole batch. A conv is a grouped conv
 with groups=E over the episodes' channels (a batched matmul on the 1x1
 path), a Dense a batched matmul, a LayerNorm a broadcast affine.
+
+Conv formulations (<- the JAX package's im2col_convs and
+episode_shift_convs). The port runs eagerly, so the JAX package's
+trace-time scopes are run-time scopes here:
+  * `episode_shift_convs()`: a trainable stride-1 3x3 conv with padding
+    equal to its dilation runs as nine shifted batched GEMMs (`ShiftConv`),
+    the partial products accumulated in fp32 and rounded once; bf16
+    operands go to cuBLAS's bf16 GEMM with an fp32 output on the card;
+  * `im2col_convs()`: every trainable conv with a kernel past 1x1 runs as
+    `F.unfold` patches in (C, kh, kw) order against the flattened kernel,
+    one batched GEMM;
+  * otherwise the grouped conv above. Strided, frozen and 1x1 convs keep
+    their path inside either scope; `conv_calls` counts the forwards of
+    each formulation. The tasks choose the scopes (tasks/base.py).
+
+`remat_call` runs a unit under non-reentrant activation checkpointing
+(TRAINER.REMAT, the JAX package's nn.remat sites): the recomputation
+replays the unit's dropout draws from a copy of its generator's state and
+runs under the scopes of the forward.
 """
 
+import contextlib
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
+from interactron_tpu_torch.ops import attention
+from interactron_tpu_torch.ops import flash_attention as fa
 from interactron_tpu_torch.ops.attention import packed_attention
-from interactron_tpu_torch.ops.flash_attention import draw_seed, dropout_mask
+from interactron_tpu_torch.ops.flash_attention import draw_seed, dropout_apply
 from interactron_tpu_torch.parallel.mesh import tp_copy, tp_gather
+
+_USE_IM2COL = False
+_USE_SHIFT9 = False
+conv_calls = {"matmul": 0, "shift": 0, "im2col": 0, "grouped": 0}
+
+
+@contextlib.contextmanager
+def _conv_flags(shift, im2col):
+    global _USE_SHIFT9, _USE_IM2COL
+    prev = _USE_SHIFT9, _USE_IM2COL
+    _USE_SHIFT9, _USE_IM2COL = shift, im2col
+    try:
+        yield
+    finally:
+        _USE_SHIFT9, _USE_IM2COL = prev
+
+
+def im2col_convs():
+    """Scope: trainable k>1 convs as im2col GEMMs inside it."""
+    return _conv_flags(_USE_SHIFT9, True)
+
+
+def episode_shift_convs():
+    """Scope: trainable stride-1 3x3 convs (padding == dilation) as nine
+    shifted batched GEMMs inside it."""
+    return _conv_flags(True, _USE_IM2COL)
+
+
+def _scope_state():
+    return _USE_SHIFT9, _USE_IM2COL, attention._flash_suppressed, fa._REMAT_DROPOUT
+
+
+@contextlib.contextmanager
+def _scopes(state):
+    """Run under the conv scopes, the attention route and the dropout form
+    of `state`, as `_scope_state` took it."""
+    prev = attention._flash_suppressed
+    attention._flash_suppressed = state[2]
+    try:
+        with _conv_flags(*state[:2]), fa.remat_dropout_scope(state[3]):
+            yield
+    finally:
+        attention._flash_suppressed = prev
+
+
+def remat_call(unit, *args, gen=None):
+    """unit(*args), or unit(*args, gen=gen) with a generator, under
+    non-reentrant activation checkpointing: only the unit's inputs are
+    kept, and the backward runs it again. What checkpoint does not restore,
+    the recomputation gets here: the tensors in the unit's parameters'
+    places (`functional_call`'s fast weights), the forward's scopes, and
+    its dropout draws, from copies of `gen`'s state on entry; `gen` is left
+    where its own draws would leave it. So the masks, and the gradients,
+    are those of a run without checkpointing."""
+    tensors = unit.state_dict(keep_vars=True)
+    state = None if gen is None else gen.get_state()
+    scopes = _scope_state()
+    end = []
+
+    def run(*a):
+        kw = {}
+        if gen is not None:
+            kw["gen"] = torch.Generator(gen.device).set_state(state)
+        with _scopes(scopes):
+            out = functional_call(unit, tensors, a, kw)
+        if gen is not None and not end:
+            end.append(kw["gen"].get_state())
+        return out
+
+    out = checkpoint(run, *args, use_reentrant=False)
+    if gen is not None:
+        gen.set_state(end[0])
+    return out
 
 
 def with_episodes(t, rank):
@@ -62,16 +159,131 @@ def xavier_uniform_(t, fan_in, fan_out, gen):
     return nn.init.uniform_(t, -bound, bound, generator=gen)
 
 
+def _grouped_conv(x, w, stride, padding, dilation):
+    """(E*F, C, H, W) frames and (E, O, C, kh, kw) kernels as one grouped
+    conv with groups=E: (F, E*C, H, W), episode e's frames in group e."""
+    e = w.shape[0]
+    b, c, h, wd = x.shape
+    xg = x.reshape(e, b // e, c, h, wd).transpose(0, 1).reshape(b // e, e * c, h, wd)
+    y = F.conv2d(xg, w.flatten(0, 1), None, stride, padding, dilation, groups=e)
+    return y.reshape(b // e, e, -1, *y.shape[2:]).transpose(0, 1).reshape(b, -1, *y.shape[2:])
+
+
+def _gemm(a, b, acc=None):
+    """Batched a @ b, or acc + a @ b into acc, with the products accumulated
+    in fp32 (or wider) and returned in that type: bf16 or fp16 operands on
+    the card through cuBLAS's half-precision GEMM with an fp32 output,
+    elsewhere upcast."""
+    dt = torch.promote_types(a.dtype, torch.float32)
+    if a.is_cuda and a.dtype != dt:
+        if acc is None:
+            return torch.bmm(a, b, out_dtype=dt)
+        return torch.baddbmm(acc, a, b, out_dtype=dt, out=acc)
+    a, b = a.to(dt), b.to(dt)
+    return torch.bmm(a, b) if acc is None else acc.baddbmm_(a, b)
+
+
+def _grid(x, e, d, at):
+    """(E*F, C, H, W) frames -> (E, F*Hp*Wp + 2d*(Wp + 1), C) zeros, Hp, Wp
+    = H + 2d, W + 2d, channels last, with frame f's pixel (i, j) at row
+    f*Hp*Wp + (i + at)*Wp + j + at; and the F*Hp*Wp rows an output covers.
+    A 3x3 tap (ty, tx) at dilation d is then the row offset ty*d*Wp + tx*d,
+    so its shifted input is a view whose rows start 16-byte aligned when C
+    is a multiple of 8 (cuBLAS's fast GEMMs need that), and no copy."""
+    b, c, h, w = x.shape
+    hp, wp = h + 2 * d, w + 2 * d
+    n = (b // e) * hp * wp
+    g = x.new_zeros(e, n + 2 * d * (wp + 1), c)
+    g[:, :n].view(e, b // e, hp, wp, c)[:, :, at:at + h, at:at + w] = (
+        x.view(e, b // e, c, h, w).permute(0, 1, 3, 4, 2))
+    return g, n, [ty * d * wp + tx * d for ty in range(3) for tx in range(3)]
+
+
+class ShiftConv(torch.autograd.Function):
+    """Stride-1 3x3 conv at dilation d (padding d) of (E*F, C, H, W) frames
+    with (E, O, C, 3, 3) kernels as nine shifted GEMMs (E, N, C) @ (E, C,
+    O) over the padded frames laid end to end (`_grid`), accumulated in
+    fp32 and rounded once to x's dtype. N counts the padding's positions
+    too, whose outputs are dropped. The backward is two more such products,
+    the input gradient this Function with the kernels transposed and
+    flipped and the kernel gradient `ShiftWgrad`, so it is differentiable
+    again."""
+
+    @staticmethod
+    def forward(ctx, x, w, d):
+        e, o = w.shape[:2]
+        b, _, h, wd = x.shape
+        g, n, offs = _grid(x, e, d, d)
+        taps = w.flatten(3).permute(3, 0, 2, 1).contiguous()  # (9, E, C, O)
+        acc = _gemm(g[:, offs[0]:offs[0] + n], taps[0])
+        for t in range(1, 9):
+            _gemm(g[:, offs[t]:offs[t] + n], taps[t], acc)
+        y = acc.view(e, b // e, h + 2 * d, wd + 2 * d, o)[:, :, :h, :wd]
+        ctx.save_for_backward(x, w)
+        ctx.d = d
+        return y.permute(0, 1, 4, 2, 3).reshape(b, o, h, wd).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = ShiftConv.apply(dy, w.transpose(1, 2).flip(-2, -1), ctx.d)
+        if ctx.needs_input_grad[1]:
+            dw = ShiftWgrad.apply(x, dy, ctx.d, w.shape[0])
+        return dx, dw, None
+
+
+class ShiftWgrad(torch.autograd.Function):
+    """The per-episode kernel gradient of `ShiftConv`: for each tap, (E, O,
+    N) output gradients @ (E, N, C) shifted inputs, accumulated in fp32 over
+    the episode's frames and positions, -> (E, O, C, 3, 3) in x's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, dy, d, e):
+        gx, n, offs = _grid(x, e, d, d)
+        gy = _grid(dy, e, d, 0)[0][:, :n].transpose(1, 2)
+        dw = torch.stack([_gemm(gy, gx[:, off:off + n]) for off in offs], -1)
+        ctx.save_for_backward(x, dy)
+        ctx.d = d
+        return dw.unflatten(-1, (3, 3)).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, gw):
+        x, dy = ctx.saved_tensors
+        gx = gdy = None
+        if ctx.needs_input_grad[0]:
+            gx = ShiftConv.apply(dy, gw.transpose(1, 2).flip(-2, -1), ctx.d)
+        if ctx.needs_input_grad[1]:
+            gdy = ShiftConv.apply(x, gw, ctx.d)
+        return gx, gdy, None, None
+
+
+def _im2col_conv(x, w, stride, padding, dilation):
+    """Patches (E*F, C*kh*kw, L) in (C, kh, kw) order against the kernels
+    flattened the same way: one (E, 1, O, C*kh*kw) @ (E, F, C*kh*kw, L)."""
+    e, o, c, kh, kw = w.shape
+    b, _, h, wd = x.shape
+    cols = F.unfold(x, (kh, kw), dilation=dilation, padding=padding, stride=stride)
+    y = torch.matmul(w.reshape(e, 1, o, c * kh * kw), cols.reshape(e, b // e, c * kh * kw, -1))
+    ho = (h + 2 * padding - dilation * (kh - 1) - 1) // stride + 1
+    wo = (wd + 2 * padding - dilation * (kw - 1) - 1) // stride + 1
+    return y.reshape(b, o, ho, wo)
+
+
 class Conv2d(nn.Module):
     """NCHW conv with torch-style explicit padding, stride and dilation. A
     1x1 conv without padding runs as a matmul; a frozen conv keeps its
     kernel as a buffer. A per-episode kernel (E, O, I, kh, kw) convolves
-    each episode's frames with its own kernel."""
+    each episode's frames with its own kernel. A trainable k>1 conv takes
+    the formulation of the scopes it runs in (`formulation`)."""
 
     def __init__(self, in_ch, out_ch, kernel_size, stride=1, padding=0, dilation=1,
                  use_bias=False, frozen=False, dtype=torch.float32):
         super().__init__()
-        self.stride, self.padding, self.dilation = stride, padding, dilation
+        self.kernel_size, self.stride, self.padding, self.dilation = (
+            kernel_size, stride, padding, dilation)
+        self.frozen = frozen
         self.dtype = dtype
         w = torch.zeros(out_ch, in_ch, kernel_size, kernel_size)
         b = torch.zeros(out_ch) if use_bias else None
@@ -88,26 +300,37 @@ class Conv2d(nn.Module):
             if self.bias is not None:
                 self.bias.zero_()
 
+    def formulation(self):
+        """"matmul", "shift", "im2col" or "grouped": the
+        JAX package's order of precedence under the current scopes."""
+        k, s, p, d = self.kernel_size, self.stride, self.padding, self.dilation
+        if k == 1 and p == 0:
+            return "matmul"
+        if _USE_SHIFT9 and not self.frozen and k == 3 and s == 1 and p == d:
+            return "shift"
+        if _USE_IM2COL and not self.frozen:
+            return "im2col"
+        return "grouped"
+
     def forward(self, x):
         x = x.to(self.dtype)
         w = with_episodes(self.weight.to(self.dtype), 4)
         e = w.shape[0]
-        if w.shape[-1] == 1 and self.padding == 0:
+        form = self.formulation()
+        conv_calls[form] += 1
+        if form == "matmul":
             if self.stride != 1:
                 x = x[:, :, :: self.stride, :: self.stride]
             b, c, h, wd = x.shape
             # (E, 1, O, C) @ (E, F, C, HW)
             y = torch.matmul(w[:, None, :, :, 0, 0], x.reshape(e, b // e, c, h * wd))
             y = y.reshape(b, -1, h, wd)
+        elif form == "shift":
+            y = ShiftConv.apply(x, w, self.dilation)
+        elif form == "im2col":
+            y = _im2col_conv(x, w, self.stride, self.padding, self.dilation)
         else:
-            # (E*F, C, H, W) -> (F, E*C, H, W): episode e's frames meet its
-            # kernel in group e
-            b, c, h, wd = x.shape
-            xg = x.reshape(e, b // e, c, h, wd).transpose(0, 1).reshape(b // e, e * c, h, wd)
-            y = F.conv2d(xg, w.flatten(0, 1), None, self.stride, self.padding, self.dilation,
-                         groups=e)
-            y = y.reshape(b // e, e, -1, *y.shape[2:]).transpose(0, 1).reshape(b, -1,
-                                                                               *y.shape[2:])
+            y = _grouped_conv(x, w, self.stride, self.padding, self.dilation)
         if self.bias is not None:
             bias = with_episodes(self.bias.to(self.dtype), 1)
             y = (y.reshape(e, -1, *y.shape[1:]) + bias[:, None, :, None, None]).reshape(y.shape)
@@ -231,7 +454,9 @@ class Dropout(nn.Module):
     generator; with one, x * keep / (1 - rate), where keep is the kernels'
     hash keyed by one seed drawn from `gen` and the element's (row, col) in
     x viewed as (rows, last dim): P(keep) = 1 - rate with an integer
-    threshold, and the same bits on every device."""
+    threshold, and the same bits on every device. Under MODEL.REMAT_DROPOUT
+    (`dropout_apply`) the backward regenerates the mask instead of saving
+    it."""
 
     def __init__(self, rate):
         super().__init__()
@@ -241,8 +466,7 @@ class Dropout(nn.Module):
         if gen is None or self.rate == 0.0:
             return x
         cols = x.shape[-1]
-        keep = dropout_mask(draw_seed(gen), self.rate, (1, x.numel() // cols, cols), x.device)
-        return x * keep.view(x.shape) * (1.0 / (1.0 - self.rate))
+        return dropout_apply(x, draw_seed(gen), self.rate, (1, x.numel() // cols, cols))
 
 
 class MultiHeadAttention(nn.Module):

@@ -11,7 +11,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from interactron_tpu_torch.models.layers import Conv2d, FrozenBatchNorm
+from interactron_tpu_torch.models.layers import Conv2d, FrozenBatchNorm, remat_call
 
 
 def _max_pool_3x3_s2p1(x):
@@ -46,7 +46,9 @@ class Bottleneck(nn.Module):
 class ResNet50DC5(nn.Module):
     """`stage` splits the network at its frozen/trainable boundary:
     "prefix" runs the frozen stem+layer1, "trunk" resumes from layer2 on
-    prefix features, "all" runs both. Input and output are NCHW."""
+    prefix features, "all" runs both. Input and output are NCHW. `remat`
+    checkpoints each trainable bottleneck (TRAINER.REMAT; the frozen ones
+    carry no gradient, as in JAX)."""
 
     LAYERS = (  # name, planes, blocks, stride, dilation, frozen
         ("layer1", 64, 3, 1, 1, True),
@@ -70,12 +72,13 @@ class ResNet50DC5(nn.Module):
                     frozen=frozen, dtype=dtype))
                 in_ch = planes * 4
 
-    def _layer(self, x, name, blocks):
+    def _layer(self, x, name, blocks, remat=False):
         for i in range(blocks):
-            x = getattr(self, f"{name}_block{i}")(x)
+            block = getattr(self, f"{name}_block{i}")
+            x = remat_call(block, x) if remat else block(x)
         return x
 
-    def forward(self, x, stage="all"):
+    def forward(self, x, stage="all", remat=False):
         if stage not in ("all", "prefix", "trunk"):
             raise ValueError(f"unknown stage {stage!r}")
         if stage in ("all", "prefix"):
@@ -85,5 +88,5 @@ class ResNet50DC5(nn.Module):
             if stage == "prefix":
                 return x
         for name, _, blocks, *_ in self.LAYERS[1:]:
-            x = self._layer(x, name, blocks)
+            x = self._layer(x, name, blocks, remat)
         return x

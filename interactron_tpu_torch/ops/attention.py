@@ -25,11 +25,13 @@ probabilities never exist whole, at either order of differentiation.
 Dropout is on when the caller passes a generator: one int32 seed is drawn
 from it per attention call, and the keep bits are the kernels' hash of
 (seed, b*H + h, row, col), on the fused, the dense and the chunked path
-alike.
+alike. The dense path applies them through `dropout_apply`, which under
+MODEL.REMAT_DROPOUT saves no mask and regenerates it in the backward.
 """
 
 import contextlib
 import math
+import os
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -38,16 +40,18 @@ from interactron_tpu_torch.ops.flash_attention import (
     FlashAttention,
     FlashAttentionSO,
     draw_seed,
-    dropout_mask,
+    dropout_apply,
 )
 
-FLASH_MIN_HD = 32
-FLASH_MIN_S = 256
-FLASH_MIN_T = 128
+# the gates, overridden by the environment variables of the same names
+# with the JAX package's defaults (<- _FLASH_MIN_*, read at import)
+FLASH_MIN_HD = int(os.environ.get("FLASH_MIN_HD", 32))
+FLASH_MIN_S = int(os.environ.get("FLASH_MIN_S", 256))
+FLASH_MIN_T = int(os.environ.get("FLASH_MIN_T", 128))
 # the twice-differentiated context's own gates (<- _FLASH_SO_MIN_*)
-FLASH_SO_MIN_HD = 32
-FLASH_SO_MIN_S = 256
-FLASH_SO_MIN_T = 128
+FLASH_SO_MIN_HD = int(os.environ.get("FLASH_SO_MIN_HD", 32))
+FLASH_SO_MIN_S = int(os.environ.get("FLASH_SO_MIN_S", 256))
+FLASH_SO_MIN_T = int(os.environ.get("FLASH_SO_MIN_T", 128))
 # the chunked path's gate on b*H*T*S and its query block (<- _chunked_attention_bthd)
 CHUNK_MIN_ELEMENTS = 4 * 1024 * 1024
 CHUNK_BLOCK = 256
@@ -107,6 +111,5 @@ def _dense_rows(qh, kh, vh, rate, seed, row0=0):
     logits = torch.einsum("bthd,bshd->bhts", qh.float(), kh.float()) * (1.0 / math.sqrt(hd))
     probs = torch.softmax(logits, dim=-1)
     if rate > 0.0:
-        keep = dropout_mask(seed, rate, (b * h, t, s), qh.device, offsets=(0, row0, 0))
-        probs = probs * keep.view(b, h, t, s) * (1.0 / (1.0 - rate))
+        probs = dropout_apply(probs, seed, rate, (b * h, t, s), (0, row0, 0))
     return torch.einsum("bhts,bshd->bthd", probs.to(qh.dtype), vh)

@@ -48,6 +48,7 @@ are scaled by 1 / (1 - rate) after the softmax's denominator is taken.
 show that its attention went through the kernels.
 """
 
+import contextlib
 import ctypes
 import math
 import os
@@ -180,6 +181,57 @@ def dropout_mask(seed, rate, shape, device, offsets=(0, 0, 0)):
         _launch("dropout_mask", out.data_ptr(), seed & _M32, keep_threshold(rate),
                 *shape, *offsets)
     return out
+
+
+# MODEL.REMAT_DROPOUT (<- models/layers.py::set_remat_dropout): on by
+# default as in JAX; a task enters `remat_dropout_scope` with its config's
+# value around each pass of its modules
+_REMAT_DROPOUT = True
+
+
+@contextlib.contextmanager
+def remat_dropout_scope(enabled):
+    """Scope: dropout inside it saves no mask (`DropoutApply`) when
+    `enabled`, else saves its mask for the backward."""
+    global _REMAT_DROPOUT
+    prev, _REMAT_DROPOUT = _REMAT_DROPOUT, bool(enabled)
+    try:
+        yield
+    finally:
+        _REMAT_DROPOUT = prev
+
+
+def _apply_mask(x, seed, rate, region, offsets):
+    keep = dropout_mask(seed, rate, region, x.device, offsets)
+    return x * keep.view(x.shape) * (1.0 / (1.0 - rate))
+
+
+class DropoutApply(torch.autograd.Function):
+    """x * keep / (1 - rate) that saves no mask (<- the jax.checkpoint of
+    `_dropout_mask_apply`): keep is the mask of `region` = (n_bh, rows,
+    cols) at `offsets`, x viewed as that region. The backward regenerates
+    the mask from the seed by applying this Function to dy, so it is
+    differentiable again, and each order of differentiation launches the
+    mask once more."""
+
+    @staticmethod
+    def forward(ctx, x, seed, rate, region, offsets):
+        ctx.mask = (seed, rate, region, offsets)
+        return _apply_mask(x, seed, rate, region, offsets)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return DropoutApply.apply(dy, *ctx.mask), None, None, None, None
+
+
+def dropout_apply(x, seed, rate, region, offsets=(0, 0, 0)):
+    """Inverted dropout of x with the mask of `region` at `offsets` (x has
+    its size): through `DropoutApply` under MODEL.REMAT_DROPOUT, else with
+    the mask saved for the backward. The values are the same either way."""
+    region, offsets = tuple(region), tuple(offsets)
+    if _REMAT_DROPOUT:
+        return DropoutApply.apply(x, seed, rate, region, offsets)
+    return _apply_mask(x, seed, rate, region, offsets)
 
 
 def _head_mask(seed, rate, b, h, t, s, device):

@@ -10,6 +10,7 @@ train step differentiate explicit leaf copies of them, passed in through
 gradients back (engine/trainer.py).
 """
 
+import contextlib
 import os
 import warnings
 
@@ -20,7 +21,12 @@ from torch.func import functional_call
 from interactron_tpu_torch.models.criterion import set_criterion
 from interactron_tpu_torch.models.detr import DETR
 from interactron_tpu_torch.models.fusion import build_fusion
-from interactron_tpu_torch.models.layers import MultiHeadAttention
+from interactron_tpu_torch.models.layers import (
+    MultiHeadAttention,
+    episode_shift_convs,
+    im2col_convs,
+)
+from interactron_tpu_torch.ops.flash_attention import remat_dropout_scope
 from interactron_tpu_torch.utils import constants as C
 from interactron_tpu_torch.utils.checkpoint import load_pretrained
 
@@ -88,6 +94,18 @@ class TaskModel(nn.Module):
         # episodes a train-step microbatch runs in one batched pass
         trainer = config.get("TRAINER")
         self.inner_batch = int(trainer.get("INNER_BATCH", 1)) if trainer is not None else 1
+        # the JAX package's conv and memory switches, with its defaults and
+        # precedence. Every pass of the modules runs under `_switches`:
+        # dropout saves no mask (MODEL.REMAT_DROPOUT) and every trainable
+        # k>1 conv runs as im2col (MODEL.IM2COL_CONV). The fast-weight
+        # passes run under `_econv_scope` (ADAPTED_IM2COL over SHIFT_CONV),
+        # and the train passes checkpoint their layers under TRAINER.REMAT
+        # (`use_remat`). MODEL.INNER_SHIFT_CONV is not read (ROADMAP).
+        self.remat_dropout = bool(m.get("REMAT_DROPOUT", True))
+        self.im2col_conv = bool(m.get("IM2COL_CONV", False))
+        self.adapted_im2col = bool(m.get("ADAPTED_IM2COL", False))
+        self.adapted_shift9 = bool(m.get("SHIFT_CONV", True)) and not self.adapted_im2col
+        self.use_remat = bool(trainer.get("REMAT", False)) if trainer is not None else False
         self.requires_grad_(False)
         self.eval()
         self.to(self.device)
@@ -158,31 +176,51 @@ class TaskModel(nn.Module):
         tensor on the model's device."""
         return torch.as_tensor(episodes["frames"], dtype=torch.float32, device=self.device)
 
+    def _econv_scope(self):
+        """Conv scope of the fast-weight detector passes."""
+        if self.adapted_im2col:
+            return im2col_convs()
+        return episode_shift_convs() if self.adapted_shift9 else contextlib.nullcontext()
+
+    @contextlib.contextmanager
+    def _switches(self):
+        """MODEL.REMAT_DROPOUT and MODEL.IM2COL_CONV around a pass."""
+        with remat_dropout_scope(self.remat_dropout), (
+                im2col_convs() if self.im2col_conv else contextlib.nullcontext()):
+            yield
+
     # ------------------------------------------------------------- module fns
 
     def frozen_prefix(self, images):
         """Frozen stem+layer1 features (NCHW), shared by the detector passes."""
         return self.detector(images, stage="frozen_prefix")
 
-    def detr_apply(self, det_params, images, stage="all", gen=None, decoder_gen=None):
+    def detr_apply(self, det_params, images, stage="all", gen=None, decoder_gen=None,
+                   remat=False):
         """The detector with `det_params` ({name: tensor}) in place of its
         parameters, or its own parameters when `det_params` is None; dropout
         on when a generator `gen` is given, and in the decoder also with
-        `decoder_gen` alone."""
-        kw = {"stage": stage, "gen": gen, "decoder_gen": decoder_gen}
-        if det_params is None:
-            return self.detector(images, **kw)
-        return functional_call(self.detector, det_params, (images,), kw)
+        `decoder_gen` alone; its layers checkpointed with `remat` under
+        TRAINER.REMAT (JAX's `remat=train`)."""
+        kw = {"stage": stage, "gen": gen, "decoder_gen": decoder_gen,
+              "remat": remat and self.use_remat}
+        with self._switches():
+            if det_params is None:
+                return self.detector(images, **kw)
+            return functional_call(self.detector, det_params, (images,), kw)
 
-    def fusion_apply(self, detr_out, fus_params=None, gen=None, episodes=1):
+    def fusion_apply(self, detr_out, fus_params=None, gen=None, episodes=1, remat=False):
         """Per-frame detector outputs of `episodes` episodes, (E*s, ...)
         episode-major -> the fusion over a batch of E episodes, with
-        `fus_params` in place of its parameters when given."""
+        `fus_params` in place of its parameters when given; its blocks
+        checkpointed as `detr_apply`'s layers."""
         keys = ("embedded_memory_features", "box_features", "pred_logits", "pred_boxes")
         x = {k: detr_out[k].reshape(episodes, -1, *detr_out[k].shape[1:]) for k in keys}
-        if fus_params is None:
-            return self.fusion(x, gen=gen)
-        return functional_call(self.fusion, fus_params, (x,), {"gen": gen})
+        kw = {"gen": gen, "remat": remat and self.use_remat}
+        with self._switches():
+            if fus_params is None:
+                return self.fusion(x, **kw)
+            return functional_call(self.fusion, fus_params, (x,), kw)
 
     def criterion(self, outputs, targets, **kw):
         """models/criterion.py::set_criterion with the config's matcher costs."""

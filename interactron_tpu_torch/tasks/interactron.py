@@ -108,20 +108,23 @@ class InteractronRandomTask(TaskModel):
         (E, 1, Q, 4)."""
         e = len(episodes["frames"])
         fast, _, prefix = self.adapt(episodes)
-        with torch.no_grad():
+        with torch.no_grad(), self._econv_scope():
             out0 = self.detr_apply(fast, prefix.unflatten(0, (e, -1))[:, 0], stage="from_prefix")
         return {"pred_logits": out0["pred_logits"][:, None],
                 "pred_boxes": out0["pred_boxes"][:, None]}
 
     # ------------------------------------------------------------ train step
 
-    def _mb_fwd(self, params, eps, ridx, gens, second_order):
+    def _mb_fwd(self, params, eps, ridx, gens, second_order, train):
         """(main losses (E,), action logits (E, 4, 4), aux) of a microbatch of E
         episodes in one batched pass. `ridx` holds each episode's frame of
         the detector pass; `gens` the dropout generators of the inner
         detector, fusion, supervisor and detector passes (all None without
         dropout). With `second_order` the inner gradient keeps its graph, so
-        the supervisor loss reaches the fusion through g."""
+        the supervisor loss reaches the fusion through g. With `train` the
+        passes checkpoint their layers under TRAINER.REMAT. The supervisor
+        and detector passes (the fast weights) run under the fast-weight
+        conv scope."""
         det_p, fus_p = params["detector"], params["fusion"]
         e = eps["frames"].shape[0]
         adapted_p, static_p = split_inner(det_p)
@@ -133,8 +136,8 @@ class InteractronRandomTask(TaskModel):
         with torch.enable_grad():
             with flash_disabled() if second_order else nullcontext():
                 out = self.detr_apply(merge_inner(adapted_base, static_c), prefix,
-                                      stage="from_prefix", gen=gens[0])
-                fus_out = self.fusion_apply(out, fus_p, gen=gens[1], episodes=e)
+                                      stage="from_prefix", gen=gens[0], remat=train)
+                fus_out = self.fusion_apply(out, fus_p, gen=gens[1], episodes=e, remat=train)
             grads = torch.autograd.grad(learned_loss_value(fus_out), list(adapted_base.values()),
                                         create_graph=second_order)
         g = dict(zip(adapted_base, grads))
@@ -142,7 +145,9 @@ class InteractronRandomTask(TaskModel):
         with torch.set_grad_enabled(second_order):
             # supervisor (second-order) path on all frames
             fast2 = merge_inner(clipped_sgd_step(adapted_base, g, self.adaptive_lr), static_c)
-            post = self.detr_apply(fast2, prefix, stage="from_prefix", gen=gens[2])
+            with self._econv_scope():
+                post = self.detr_apply(fast2, prefix, stage="from_prefix", gen=gens[2],
+                                       remat=train)
             targets = {k: eps[k].flatten(0, 1) for k in ("labels", "boxes", "valid")}
             sup = self.criterion({k: post[k] for k in ("pred_logits", "pred_boxes")}, targets,
                                  per_frame=True, episodes=e)
@@ -158,7 +163,9 @@ class InteractronRandomTask(TaskModel):
             fast1 = merge_inner(clipped_sgd_step(adapted_p, g_stopped, self.adaptive_lr,
                                                  dtype=self.inner_dtype), static_c)
             rows = (torch.arange(e) * C.NUM_FRAMES + torch.as_tensor(ridx)).to(prefix.device)
-            det_out = self.detr_apply(fast1, prefix[rows], stage="from_prefix", gen=gens[3])
+            with self._econv_scope():
+                det_out = self.detr_apply(fast1, prefix[rows], stage="from_prefix", gen=gens[3],
+                                          remat=train)
             det = self.criterion({k: det_out[k] for k in ("pred_logits", "pred_boxes")},
                                  {k: v[rows] for k, v in targets.items()}, episodes=e)
         main = _weighted(sup) + _weighted(det)
@@ -196,7 +203,7 @@ class InteractronRandomTask(TaskModel):
                     else int(torch.randint(0, C.NUM_FRAMES, (), generator=gen))
                     for i in range(mb.start, mb.stop)]
             gens = [sub_generator(gen) if train else None for _ in range(4)]
-            main, logits, aux = self._mb_fwd(params, eps, ridx, gens, with_grads)
+            main, logits, aux = self._mb_fwd(params, eps, ridx, gens, with_grads, train)
             with torch.set_grad_enabled(with_grads):
                 loss_path, path_state = self._policy_piece(logits, aux, eps, path_state)
                 total = main.sum() + loss_path.sum()

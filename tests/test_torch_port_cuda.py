@@ -213,3 +213,59 @@ def test_dropout_mask_kernel_sub_region_is_a_slice_of_the_full_mask(region, offs
     sub = tfa.dropout_mask(4321, 0.1, region, "cuda", offsets)
     (n, r, c), (b0, r0, c0) = region, offsets
     assert torch.equal(sub, full[b0:b0 + n, r0:r0 + r, c0:c0 + c])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [True, False])
+def test_dropout_apply_mask_is_bit_exact_forward_and_backward(remat):
+    """`dropout_apply` on the card (the mask kernel, saved or regenerated
+    under MODEL.REMAT_DROPOUT) against x * the plain mask / (1 - rate), bit
+    for bit, forward and backward, and the double backward."""
+    _cuda()
+    with tfa.remat_dropout_scope(remat):
+        region, rate = (8, 255, 361), 0.1
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        x = torch.randn(region, device="cuda", generator=gen).requires_grad_(True)
+        dy = torch.randn(region, device="cuda", generator=gen).requires_grad_(True)
+        keep = tfa.dropout_mask_plain(4321, rate, region, (0, 7, 0), device="cuda")
+        want = lambda t: t * keep * (1.0 / (1.0 - rate))
+        y = tfa.dropout_apply(x, 4321, rate, region, (0, 7, 0))
+        assert torch.equal(y, want(x.detach()))
+        (dx,) = torch.autograd.grad(y, x, dy, create_graph=True)
+        assert torch.equal(dx, want(dy.detach()))
+        (ddy,) = torch.autograd.grad(dx, dy, torch.ones_like(dx))
+        assert torch.equal(ddy, want(torch.ones_like(dx)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scope", ["shift", "im2col"])
+def test_conv_formulations_match_grouped_in_bf16(scope):
+    """The fast-weight conv at layer4's shape in a lockstep predict's
+    frame-0 detect (E=4 episodes of F=1 frame, C=O=512, 19x19, dilation 2)
+    in bf16: the shift and im2col forms against the grouped conv, forward,
+    dX and per-episode dW, to 2e-2 x max|grouped| (bf16 rounding of the
+    outputs, the sums in another order)."""
+    _cuda()
+    from torch.func import functional_call
+
+    from interactron_tpu_torch.models import layers as tl
+
+    conv = tl.Conv2d(512, 512, 3, 1, 2, 2, dtype=torch.bfloat16).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    w = torch.randn((4, 512, 512, 3, 3), device="cuda", generator=gen) * 0.02
+    w.requires_grad_(True)
+    x = torch.randn((4, 512, 19, 19), device="cuda", generator=gen).bfloat16()
+    x.requires_grad_(True)
+    dy = torch.randn((4, 512, 19, 19), device="cuda", generator=gen).bfloat16()
+
+    def run(ctx):
+        with ctx:
+            y = functional_call(conv, {"weight": w}, (x,))
+        return (y, *torch.autograd.grad(y, (x, w), dy))
+
+    ref = run(tl._conv_flags(False, False))
+    before = dict(tl.conv_calls)
+    got = run(tl.episode_shift_convs() if scope == "shift" else tl.im2col_convs())
+    assert tl.conv_calls[scope] == before[scope] + 1
+    for a, b in zip(got, ref):
+        assert (a.float() - b.float()).abs().max().item() <= 2e-2 * b.float().abs().max().item()
