@@ -31,6 +31,7 @@ from interactron_tpu_torch.data.transforms import (
     boxes_to_cxcywh_norm,
 )
 from interactron_tpu_torch.utils import constants as C
+from interactron_tpu_torch.utils import profiling
 
 FIXED_TEST_PATH = ["RotateLeft", "MoveAhead", "RotateLeft", "MoveBack", "RotateRight"]
 
@@ -214,24 +215,42 @@ class EpisodeLoader:
 
     def _emit(self, ib):
         local, g = self._local_slice(ib)
-        batch = collate([self._load(i) for i in local])
+        with profiling.span("loader.batch", episodes=len(local)):
+            batch = collate([self._load(i) for i in local])
         if self.process_count > 1:
             batch["_global_rows"] = g
         return batch
 
+    @staticmethod
+    def _wait(future):
+        """The consumer's wait for the batch at the head: `loader.wait`,
+        counted in `loader.batches`, and in `loader.late` when the batch was
+        not ready as it was asked for (always without workers)."""
+        profiling.count("loader.batches")
+        if future is None or not future.done():
+            profiling.count("loader.late")
+        return profiling.span("loader.wait")
+
     def __iter__(self):
         if self.num_workers == 0:
             for ib in self._index_batches():
-                yield self._emit(ib)
+                with self._wait(None):
+                    batch = self._emit(ib)
+                yield batch
             return
         with cf.ThreadPoolExecutor(max_workers=self.num_workers) as pool:
             futures = []
             for ib in self._index_batches():
                 futures.append(pool.submit(self._emit, ib))
                 while len(futures) > self.prefetch + self.num_workers:
-                    yield futures.pop(0).result()
+                    f = futures.pop(0)
+                    with self._wait(f):
+                        batch = f.result()
+                    yield batch
             for f in futures:
-                yield f.result()
+                with self._wait(f):
+                    batch = f.result()
+                yield batch
 
 
 class InteractiveEpisodeDataset(EpisodeDataset):

@@ -33,6 +33,7 @@ from interactron_tpu_torch.data.episode_dataset import (
 from interactron_tpu_torch.data.transforms import inv_transform
 from interactron_tpu_torch.engine.ap import ap_summary, compute_ap, score_frame
 from interactron_tpu_torch.utils import constants as C
+from interactron_tpu_torch.utils import profiling
 from interactron_tpu_torch.utils.checkpoint import load_checkpoint
 
 
@@ -195,11 +196,16 @@ class InteractiveEvaluator(_EvaluatorBase):
 
                 for _ in range(C.NUM_FRAMES - 1):
                     _, batch = replay()
-                    actions = self.task.next_action(batch).tolist()
+                    actions = self.task.next_action(batch)
+                    with profiling.sync("actions_to_host", cuda=actions.is_cuda):
+                        actions = actions.tolist()
                     for j, a in enumerate(actions):
                         acts[j].append(C.ACTIONS[a])
                 samples, batch = replay()
-                preds = {k: v.cpu() for k, v in self.task.predict(batch).items()}
+                preds = self.task.predict(batch)
+                with profiling.sync("predictions_to_host", n=len(preds),
+                                    cuda=any(v.is_cuda for v in preds.values())):
+                    preds = {k: v.cpu() for k, v in preds.items()}
                 for j, sample in enumerate(samples):
                     self._record(sample, {k: v[j:j + 1] for k, v in preds.items()}, detections,
                                  save_results)

@@ -57,6 +57,7 @@ from interactron_tpu_torch.parallel.mesh import (
     replicate_over_tp,
     world_size,
 )
+from interactron_tpu_torch.utils import profiling
 from interactron_tpu_torch.utils.checkpoint import (
     RunningAverage,
     load_state,
@@ -102,6 +103,7 @@ class Trainer:
         self.warmup_tokens = float(t.get("WARMUP_TOKENS", 0) or 0)
         self.final_tokens = float(t.get("FINAL_TOKENS", 0) or 0)
         self.tokens = 0
+        self.steps = 0  # train_step calls, for the step's span
         self.batch_size = int(t.BATCH_SIZE)
         self.max_epochs = int(t.MAX_EPOCHS)
         self.save_window = int(t.get("SAVE_WINDOW", 0) or 0)
@@ -148,27 +150,32 @@ class Trainer:
 
     def apply_grads(self, grads, lr_scale=1.0):
         """Clip jointly, then one step of each Adam. Returns the global norm."""
-        grads, gnorm = global_norm_clip(grads, self.grad_clip)
-        self.opts[self.scaled].param_groups[0]["lr"] = self.base_lr * lr_scale
-        modules = self.task.modules_by_group()
-        for opt_name, opt in self.opts.items():
-            for grp in self.opt_groups[opt_name]:
-                for name, p in modules[grp].named_parameters():
-                    p.grad = grads[grp][name]
-            opt.step()
-            opt.zero_grad(set_to_none=True)
-        return gnorm
+        with profiling.span("train.apply_grads"):
+            grads, gnorm = global_norm_clip(grads, self.grad_clip)
+            self.opts[self.scaled].param_groups[0]["lr"] = self.base_lr * lr_scale
+            modules = self.task.modules_by_group()
+            for opt_name, opt in self.opts.items():
+                for grp in self.opt_groups[opt_name]:
+                    for name, p in modules[grp].named_parameters():
+                        p.grad = grads[grp][name]
+                opt.step()
+                opt.zero_grad(set_to_none=True)
+            return gnorm
 
     def train_step(self, batch, gen, frame_index=None):
         """One step on a batch of episodes (see InteractronTask.grads_and_metrics;
         over several ranks, this rank's slice of it): returns the metrics
         with the pre-clip `grad_norm`."""
-        scale = self._lr_scale()
-        grads, metrics, self.path_state = self.grads_fn(
-            batch, gen, self.path_state, train=True, frame_index=frame_index)
-        metrics["grad_norm"] = float(self.apply_grads(grads, scale))
         b, s = batch["frames"].shape[:2]
+        with profiling.span("train.step", step=self.steps, episodes=b):
+            scale = self._lr_scale()
+            grads, metrics, self.path_state = self.grads_fn(
+                batch, gen, self.path_state, train=True, frame_index=frame_index)
+            gnorm = self.apply_grads(grads, scale)
+            with profiling.sync("grad_norm", cuda=gnorm.is_cuda):
+                metrics["grad_norm"] = float(gnorm)
         self._advance_tokens(batch.get("_global_rows", b * self.grid.dp), s)
+        self.steps += 1
         return metrics
 
     # ------------------------------------------------------------- the loop

@@ -25,25 +25,31 @@ import torch.nn.functional as F
 
 from interactron_tpu_torch.ops.box_ops import box_cxcywh_to_xyxy, generalized_box_iou
 from interactron_tpu_torch.ops.hungarian import batched_solve_padded
+from interactron_tpu_torch.utils import profiling
 
 
 def hungarian_match(outputs, targets, cost_class=1.0, cost_bbox=5.0, cost_giou=2.0):
     """col_to_row (B, M) int64 on the predictions' device: for each padded
     target the matched query; meaningful at valid targets only."""
-    logits = outputs["pred_logits"].detach().float()
-    boxes = outputs["pred_boxes"].detach().float()
-    tgt_boxes = targets["boxes"].float()
-    prob = logits.softmax(-1)
-    idx = targets["labels"].long().clamp(min=0)[:, None, :].expand(-1, prob.shape[1], -1)
-    c_class = -torch.gather(prob, 2, idx)
-    c_bbox = (boxes[:, :, None, :] - tgt_boxes[:, None, :, :]).abs().sum(-1)
-    c_giou = -generalized_box_iou(box_cxcywh_to_xyxy(boxes), box_cxcywh_to_xyxy(tgt_boxes),
-                                  eps=1e-8)
-    cost = cost_bbox * c_bbox + cost_class * c_class + cost_giou * c_giou
-    if cost.shape[2] > cost.shape[1]:
-        raise ValueError("more padded targets than queries")
-    col_to_row = batched_solve_padded(cost.cpu().numpy(), targets["valid"].cpu().numpy())
-    return torch.as_tensor(col_to_row, device=logits.device)
+    with profiling.span("match"):
+        with profiling.span("match.cost"):
+            logits = outputs["pred_logits"].detach().float()
+            boxes = outputs["pred_boxes"].detach().float()
+            tgt_boxes = targets["boxes"].float()
+            prob = logits.softmax(-1)
+            idx = targets["labels"].long().clamp(min=0)[:, None, :].expand(-1, prob.shape[1], -1)
+            c_class = -torch.gather(prob, 2, idx)
+            c_bbox = (boxes[:, :, None, :] - tgt_boxes[:, None, :, :]).abs().sum(-1)
+            c_giou = -generalized_box_iou(box_cxcywh_to_xyxy(boxes),
+                                          box_cxcywh_to_xyxy(tgt_boxes), eps=1e-8)
+            cost = cost_bbox * c_bbox + cost_class * c_class + cost_giou * c_giou
+        if cost.shape[2] > cost.shape[1]:
+            raise ValueError("more padded targets than queries")
+        with profiling.sync("match_to_host", n=2, cuda=cost.is_cuda):
+            cost, valid = cost.cpu().numpy(), targets["valid"].cpu().numpy()
+        with profiling.span("match.solve"):
+            col_to_row = batched_solve_padded(cost, valid)
+        return profiling.upload("match_result", col_to_row, logits.device)
 
 
 def _elementwise_giou(b1, b2, eps=1e-8):
@@ -85,7 +91,8 @@ def set_criterion(outputs, targets, *, num_classes, background_c=0.1, cost_class
 
     # loss_ce: matched queries take their target's label, the rest no-object
     target_classes = torch.full((b, q), num_classes, dtype=torch.long, device=logits.device)
-    fr, tg = valid.nonzero(as_tuple=True)
+    with profiling.sync("criterion_nonzero", cuda=valid.is_cuda):
+        fr, tg = valid.nonzero(as_tuple=True)
     target_classes[fr, col_to_row[fr, tg]] = labels[fr, tg]
     nll = -torch.gather(F.log_softmax(logits, -1), 2, target_classes[..., None])[..., 0]
     w = torch.where(target_classes == num_classes, background_c, 1.0)

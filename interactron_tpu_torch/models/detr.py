@@ -25,6 +25,7 @@ from interactron_tpu_torch.models.position_encoding import sine_position_embeddi
 from interactron_tpu_torch.models.resnet import ResNet50DC5
 from interactron_tpu_torch.models.vit import ViT
 from interactron_tpu_torch.utils import constants as C
+from interactron_tpu_torch.utils import profiling
 
 
 class EncoderLayer(nn.Module):
@@ -174,8 +175,8 @@ class DETR(nn.Module):
             feats = feats.permute(0, 2, 3, 1)
         b, h, w, _ = feats.shape
         src = self.input_proj(feats).reshape(b, h * w, self.d_model)
-        pos = torch.as_tensor(sine_position_embedding(h, w, self.d_model // 2),
-                              dtype=self.dtype, device=src.device)[None]
+        pos = profiling.upload("sine_table", sine_position_embedding(h, w, self.d_model // 2),
+                               src.device, self.dtype)[None]
 
         memory = src
         for i in range(self.num_encoder_layers):

@@ -57,6 +57,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from interactron_tpu_torch.ops import cuda_build
+from interactron_tpu_torch.utils import profiling
 
 launches = {"flash_fwd": 0, "flash_bwd": 0, "flash_dq": 0, "flash_dkv": 0, "flash_so": 0,
             "flash_so_row": 0, "flash_so_col": 0, "dropout_mask": 0}
@@ -111,11 +112,21 @@ def _kernel(name):
 
 
 def _launch(name, *args):
-    """Call kernel `name` on the current stream and count the launch."""
+    """Call kernel `name` on the current stream and count the launch; while
+    the recorder is on (utils/profiling.py), an attention kernel's launch
+    is also recorded with its shapes, read from its own arguments."""
     err = _kernel(name)(*args, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     launches[name] += 1
+    if profiling.recording() and name != "dropout_mask":
+        # the six ints after the pointers: B, T, S, H, D, dtype; then the
+        # dropout arguments, whose scale is 1 / (1 - rate)
+        i = _ARGTYPES[name].index(_I)
+        b, t, s, h, d, dt = args[i:i + 6]
+        scale, on = args[i + 8], args[i + 9]
+        profiling.record_launch(name, b, t, s, h, d, 4 if dt == _DTYPES[torch.float32] else 2,
+                                1.0 - 1.0 / scale if on else 0.0)
 
 
 # ---------------------------------------------------------------- dropout

@@ -28,6 +28,7 @@ from interactron_tpu_torch.models.layers import (
 )
 from interactron_tpu_torch.ops.flash_attention import remat_dropout_scope
 from interactron_tpu_torch.utils import constants as C
+from interactron_tpu_torch.utils import profiling
 from interactron_tpu_torch.utils.checkpoint import load_pretrained
 
 _DTYPES = {None: torch.float32, "float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -166,15 +167,17 @@ class TaskModel(nn.Module):
         device: frames (E, 5, H, W, 3) float32; labels, boxes, valid,
         actions and episode_uid (E,) as given."""
         dev = self.device
-        eps = {k: torch.as_tensor(batch[k][idx], device=dev)
-               for k in ("frames", "labels", "boxes", "valid", "actions", "episode_uid")}
+        with profiling.span("mb.upload"):
+            eps = {k: profiling.upload("batch", batch[k][idx], dev)
+                   for k in ("frames", "labels", "boxes", "valid", "actions", "episode_uid")}
         eps["frames"] = eps["frames"].float()
         return eps
 
     def frames(self, episodes):
         """episodes["frames"] (E, s, H, W, 3) ImageNet-normalised, as a float32
         tensor on the model's device."""
-        return torch.as_tensor(episodes["frames"], dtype=torch.float32, device=self.device)
+        with profiling.span("frames.upload"):
+            return profiling.upload("frames", episodes["frames"], self.device, torch.float32)
 
     def _econv_scope(self):
         """Conv scope of the fast-weight detector passes."""

@@ -46,6 +46,7 @@ from interactron_tpu_torch.meta import (
 from interactron_tpu_torch.ops.attention import flash_disabled
 from interactron_tpu_torch.tasks.base import TaskModel, sub_generator
 from interactron_tpu_torch.utils import constants as C
+from interactron_tpu_torch.utils import profiling
 from interactron_tpu_torch.utils.device_path_storage import init_path_state, update_and_label
 
 _SUP_KEYS = ["loss_ce", "loss_bbox", "loss_giou", "cardinality_error", "class_error"]
@@ -87,31 +88,38 @@ class InteractronRandomTask(TaskModel):
 
         Returns (fast weights, g, frozen prefix of the E*s frames); the
         adapted entries of both dicts are (E, ...)."""
-        frames = self.frames(episodes)
-        e = frames.shape[0]
-        with torch.no_grad():
-            prefix = self.frozen_prefix(frames.flatten(0, 1))
-        adapted_p, static_p = split_inner(dict(self.detector.named_parameters()))
-        static_c = {k: self._cast(v) for k, v in static_p.items()}
-        leaves = self._per_episode(adapted_p, e)
-        with torch.enable_grad():
-            out = self.detr_apply(merge_inner(leaves, static_c), prefix, stage="from_prefix")
-            loss = learned_loss_value(self.fusion_apply(out, episodes=e))
-            grads = torch.autograd.grad(loss, list(leaves.values()))
-        g = dict(zip(leaves, grads))
-        fast = clipped_sgd_step(adapted_p, g, self.adaptive_lr, dtype=self.inner_dtype)
-        return merge_inner(fast, static_c), g, prefix
+        with profiling.span("adapt"):
+            frames = self.frames(episodes)
+            e = frames.shape[0]
+            with torch.no_grad(), profiling.span("adapt.prefix"):
+                prefix = self.frozen_prefix(frames.flatten(0, 1))
+            adapted_p, static_p = split_inner(dict(self.detector.named_parameters()))
+            static_c = {k: self._cast(v) for k, v in static_p.items()}
+            leaves = self._per_episode(adapted_p, e)
+            with torch.enable_grad():
+                with profiling.span("adapt.inner"):
+                    out = self.detr_apply(merge_inner(leaves, static_c), prefix,
+                                          stage="from_prefix")
+                    loss = learned_loss_value(self.fusion_apply(out, episodes=e))
+                with profiling.span("adapt.inner_grad"):
+                    grads = torch.autograd.grad(loss, list(leaves.values()))
+            g = dict(zip(leaves, grads))
+            with profiling.span("adapt.step"):
+                fast = clipped_sgd_step(adapted_p, g, self.adaptive_lr, dtype=self.inner_dtype)
+            return merge_inner(fast, static_c), g, prefix
 
     def predict(self, episodes):
         """Adapt on each of E episodes, then detect on its frame 0 with its
         own fast weights: pred_logits (E, 1, Q, C+1) and pred_boxes
         (E, 1, Q, 4)."""
         e = len(episodes["frames"])
-        fast, _, prefix = self.adapt(episodes)
-        with torch.no_grad(), self._econv_scope():
-            out0 = self.detr_apply(fast, prefix.unflatten(0, (e, -1))[:, 0], stage="from_prefix")
-        return {"pred_logits": out0["pred_logits"][:, None],
-                "pred_boxes": out0["pred_boxes"][:, None]}
+        with profiling.span("serve.predict", episodes=e):
+            fast, _, prefix = self.adapt(episodes)
+            with torch.no_grad(), self._econv_scope(), profiling.span("predict.detect"):
+                out0 = self.detr_apply(fast, prefix.unflatten(0, (e, -1))[:, 0],
+                                       stage="from_prefix")
+            return {"pred_logits": out0["pred_logits"][:, None],
+                    "pred_boxes": out0["pred_boxes"][:, None]}
 
     # ------------------------------------------------------------ train step
 
@@ -130,44 +138,51 @@ class InteractronRandomTask(TaskModel):
         adapted_p, static_p = split_inner(det_p)
         adapted_base = self._per_episode(adapted_p, e)
         static_c = {k: self._cast(v) for k, v in static_p.items()}  # not stopped
-        with torch.no_grad():
+        with torch.no_grad(), profiling.span("mb.prefix"):
             prefix = self.frozen_prefix(eps["frames"].flatten(0, 1))
 
         with torch.enable_grad():
-            with flash_disabled() if second_order else nullcontext():
+            with flash_disabled() if second_order else nullcontext(), profiling.span("mb.inner"):
                 out = self.detr_apply(merge_inner(adapted_base, static_c), prefix,
                                       stage="from_prefix", gen=gens[0], remat=train)
                 fus_out = self.fusion_apply(out, fus_p, gen=gens[1], episodes=e, remat=train)
-            grads = torch.autograd.grad(learned_loss_value(fus_out), list(adapted_base.values()),
-                                        create_graph=second_order)
+            with profiling.span("mb.inner_grad"):
+                grads = torch.autograd.grad(learned_loss_value(fus_out),
+                                            list(adapted_base.values()),
+                                            create_graph=second_order)
         g = dict(zip(adapted_base, grads))
 
         with torch.set_grad_enabled(second_order):
-            # supervisor (second-order) path on all frames
-            fast2 = merge_inner(clipped_sgd_step(adapted_base, g, self.adaptive_lr), static_c)
-            with self._econv_scope():
-                post = self.detr_apply(fast2, prefix, stage="from_prefix", gen=gens[2],
-                                       remat=train)
-            targets = {k: eps[k].flatten(0, 1) for k in ("labels", "boxes", "valid")}
-            sup = self.criterion({k: post[k] for k in ("pred_logits", "pred_boxes")}, targets,
-                                 per_frame=True, episodes=e)
-            pf = sup.pop("_per_frame")
-            # frame-0 ground-truth loss of the adapted detector: the policy reward
-            nb0 = pf["num_boxes"][:, 0].clamp(min=1.0)
-            reward = (pf["ce_num"][:, 0] / pf["ce_den"][:, 0]
-                      + 5.0 * (pf["giou_sum"][:, 0] / nb0)
-                      + 2.0 * (pf["bbox_sum"][:, 0] / nb0)).detach()
+            with profiling.span("mb.supervisor"):
+                # supervisor (second-order) path on all frames
+                fast2 = merge_inner(clipped_sgd_step(adapted_base, g, self.adaptive_lr),
+                                    static_c)
+                with self._econv_scope():
+                    post = self.detr_apply(fast2, prefix, stage="from_prefix", gen=gens[2],
+                                           remat=train)
+                targets = {k: eps[k].flatten(0, 1) for k in ("labels", "boxes", "valid")}
+                sup = self.criterion({k: post[k] for k in ("pred_logits", "pred_boxes")},
+                                     targets, per_frame=True, episodes=e)
+                pf = sup.pop("_per_frame")
+                # frame-0 ground-truth loss of the adapted detector: the policy reward
+                nb0 = pf["num_boxes"][:, 0].clamp(min=1.0)
+                reward = (pf["ce_num"][:, 0] / pf["ce_den"][:, 0]
+                          + 5.0 * (pf["giou_sum"][:, 0] / nb0)
+                          + 2.0 * (pf["bbox_sum"][:, 0] / nb0)).detach()
 
-            # detector (first-order) path, each episode on its own frame ridx
-            g_stopped = {k: v.detach() for k, v in g.items()}
-            fast1 = merge_inner(clipped_sgd_step(adapted_p, g_stopped, self.adaptive_lr,
-                                                 dtype=self.inner_dtype), static_c)
-            rows = (torch.arange(e) * C.NUM_FRAMES + torch.as_tensor(ridx)).to(prefix.device)
-            with self._econv_scope():
-                det_out = self.detr_apply(fast1, prefix[rows], stage="from_prefix", gen=gens[3],
-                                          remat=train)
-            det = self.criterion({k: det_out[k] for k in ("pred_logits", "pred_boxes")},
-                                 {k: v[rows] for k, v in targets.items()}, episodes=e)
+            with profiling.span("mb.detector"):
+                # detector (first-order) path, each episode on its own frame ridx
+                g_stopped = {k: v.detach() for k, v in g.items()}
+                fast1 = merge_inner(clipped_sgd_step(adapted_p, g_stopped, self.adaptive_lr,
+                                                     dtype=self.inner_dtype), static_c)
+                rows = profiling.upload("frame_rows",
+                                        torch.arange(e) * C.NUM_FRAMES + torch.as_tensor(ridx),
+                                        prefix.device)
+                with self._econv_scope():
+                    det_out = self.detr_apply(fast1, prefix[rows], stage="from_prefix",
+                                              gen=gens[3], remat=train)
+                det = self.criterion({k: det_out[k] for k in ("pred_logits", "pred_boxes")},
+                                     {k: v[rows] for k, v in targets.items()}, episodes=e)
         main = _weighted(sup) + _weighted(det)
         aux = {"reward": reward, "sup": {k: v.detach() for k, v in sup.items()},
                "det": {k: v.detach() for k, v in det.items()}}
@@ -198,29 +213,34 @@ class InteractronRandomTask(TaskModel):
         m = {}
         grads = {grp: {n: torch.zeros_like(p) for n, p in d.items()} for grp, d in params.items()}
         for mb in self.microbatches(b):
-            eps = self.episodes(batch, mb)
-            ridx = [int(frame_index[i]) if frame_index is not None
-                    else int(torch.randint(0, C.NUM_FRAMES, (), generator=gen))
-                    for i in range(mb.start, mb.stop)]
-            gens = [sub_generator(gen) if train else None for _ in range(4)]
-            main, logits, aux = self._mb_fwd(params, eps, ridx, gens, with_grads, train)
-            with torch.set_grad_enabled(with_grads):
-                loss_path, path_state = self._policy_piece(logits, aux, eps, path_state)
-                total = main.sum() + loss_path.sum()
-            if with_grads:
-                # one autograd.grad a microbatch, summed by hand: accumulating
-                # in .grad across backward calls counted an episode's
-                # action-token gradient twice (torch 2.13, CPU); the sum is
-                # held against JAX in tests/test_torch_port_{train,batching}.py
-                got = torch.autograd.grad(total, leaves, allow_unused=True)
-                for (grp, name), g in zip(names, got):
-                    if g is not None:
-                        grads[grp][name] += g
-            pieces = {"policy_reward": aux["reward"], "loss_path": loss_path, "total_loss": total}
-            pieces.update({f"sup_{k}": aux["sup"][k] for k in _SUP_KEYS})
-            pieces.update({f"det_{k}": aux["det"][k] for k in _SUP_KEYS})
-            for k, v in pieces.items():
-                m[k] = m.get(k, 0.0) + v.detach().double().sum()
+            with profiling.span("train.microbatch", episodes=mb.stop - mb.start):
+                eps = self.episodes(batch, mb)
+                ridx = [int(frame_index[i]) if frame_index is not None
+                        else int(torch.randint(0, C.NUM_FRAMES, (), generator=gen))
+                        for i in range(mb.start, mb.stop)]
+                gens = [sub_generator(gen) if train else None for _ in range(4)]
+                main, logits, aux = self._mb_fwd(params, eps, ridx, gens, with_grads, train)
+                with torch.set_grad_enabled(with_grads), profiling.span("mb.policy"):
+                    loss_path, path_state = self._policy_piece(logits, aux, eps, path_state)
+                    total = main.sum() + loss_path.sum()
+                if with_grads:
+                    # one autograd.grad a microbatch, summed by hand: accumulating
+                    # in .grad across backward calls counted an episode's
+                    # action-token gradient twice (torch 2.13, CPU); the sum is
+                    # held against JAX in tests/test_torch_port_{train,batching}.py
+                    with profiling.span("mb.outer_grad"):
+                        got = torch.autograd.grad(total, leaves, allow_unused=True)
+                with profiling.span("mb.accumulate"):
+                    if with_grads:
+                        for (grp, name), g in zip(names, got):
+                            if g is not None:
+                                grads[grp][name] += g
+                    pieces = {"policy_reward": aux["reward"], "loss_path": loss_path,
+                              "total_loss": total}
+                    pieces.update({f"sup_{k}": aux["sup"][k] for k in _SUP_KEYS})
+                    pieces.update({f"det_{k}": aux["det"][k] for k in _SUP_KEYS})
+                    for k, v in pieces.items():
+                        m[k] = m.get(k, 0.0) + v.detach().double().sum()
         return grads if with_grads else None, self._finalize_metrics(m, b), path_state
 
     def _finalize_metrics(self, m, b):
@@ -265,7 +285,11 @@ class InteractronTask(InteractronRandomTask):
         """Argmax of the fusion's action logits at token s-1 for each of E
         episodes of s frames (1 <= s <= 4; episodes["frames"] (E, s, H, W,
         3)), in one batched pass with the shared weights: (E,) int64."""
-        frames = self.frames(episodes)
-        e, s = frames.shape[:2]
-        fus = self.fusion_apply(self.detr_apply(None, frames.flatten(0, 1)), episodes=e)
-        return torch.argmax(fus["actions"][:, s - 1], dim=-1)
+        e, s = len(episodes["frames"]), episodes["frames"].shape[1]
+        with profiling.span("serve.next_action", episodes=e, s=s):
+            frames = self.frames(episodes)
+            with profiling.span("next_action.detect"):
+                out = self.detr_apply(None, frames.flatten(0, 1))
+            with profiling.span("next_action.fusion"):
+                fus = self.fusion_apply(out, episodes=e)
+                return torch.argmax(fus["actions"][:, s - 1], dim=-1)

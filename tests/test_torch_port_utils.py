@@ -1,9 +1,7 @@
 """The port's small utilities: the AdamW weight-decay mask and optimizer
 (utils/optim.py) against the JAX package's, leaf for leaf through
-utils/from_jax.py names, and the synchronizing timer (utils/profiling.py).
-One AdamW step is held to 1e-7 against optax's on the same gradients."""
-
-import time
+utils/from_jax.py names. One AdamW step is held to 1e-7 against optax's on
+the same gradients."""
 
 import jax
 import jax.numpy as jnp
@@ -16,7 +14,6 @@ from interactron_tpu.tasks.interactron import InteractronTask as JaxTask
 from interactron_tpu.utils.optim import make_optimizer as j_make_optimizer
 from interactron_tpu.utils.optim import weight_decay_mask as j_weight_decay_mask
 from interactron_tpu_torch.tasks import InteractronRandomTask, InteractronTask
-from interactron_tpu_torch.utils import profiling
 from interactron_tpu_torch.utils.config import Config
 from interactron_tpu_torch.utils.from_jax import _leaf, from_jax
 from interactron_tpu_torch.utils.optim import make_optimizer, weight_decay_mask
@@ -64,18 +61,3 @@ def test_make_optimizer_kinds():
     assert type(make_optimizer("Adam", task.named_parameters(), 1e-4)) is torch.optim.Adam
     with pytest.raises(ValueError, match="unknown optimizer"):
         make_optimizer("SGD", task.named_parameters(), 1e-4)
-
-
-def test_timer_and_timed_on_the_cpu(tmp_path):
-    timer = profiling.Timer()
-    time.sleep(0.02)
-    first = timer.tick("sleep")
-    assert 0.015 < first < 1.0 and timer.laps[0][0] == "sleep"
-    assert "sleep: " in timer.report()
-    calls = []
-    out, secs = profiling.timed(lambda x: calls.append(x) or x * 2, 3, iters=4, warmup=2)
-    assert out == 6 and len(calls) == 6 and secs >= 0.0
-    with profiling.trace(str(tmp_path / "trace")) as prof:
-        torch.ones(64, 64) @ torch.ones(64, 64)
-    assert (tmp_path / "trace" / "trace.json").exists()
-    assert any("mm" in e.key for e in prof.key_averages())
