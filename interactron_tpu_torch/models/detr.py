@@ -146,10 +146,22 @@ class DETR(nn.Module):
                                                ff_dim, dropout_rate, dtype)
         self.class_embed = Dense(d_model, num_classes + 1, dtype=dtype)
         self.bbox_embed = MLP(d_model, d_model, 4, 3, dtype=dtype)
+        self._pos = {}  # (h, w, d_model/2, dtype, device) -> sine table
 
     def init_weights(self, gen):
         with torch.no_grad():
             nn.init.normal_(self.query_embed, 0.0, 1.0, generator=gen)
+
+    def sine_table(self, h, w, device):
+        """(1, h*w, d_model) sine positions of an h x w map in the compute
+        dtype on `device`, uploaded once per grid size, dtype and device
+        (an upload inside a CUDA graph's capture is not allowed)."""
+        key = (h, w, self.d_model // 2, self.dtype, str(device))
+        if key not in self._pos:
+            self._pos[key] = profiling.upload(
+                "sine_table", sine_position_embedding(h, w, self.d_model // 2), device,
+                self.dtype)[None]
+        return self._pos[key]
 
     def forward(self, images, stage="all", gen=None, decoder_gen=None, remat=False):
         if stage not in ("all", "frozen_prefix", "from_prefix"):
@@ -175,8 +187,7 @@ class DETR(nn.Module):
             feats = feats.permute(0, 2, 3, 1)
         b, h, w, _ = feats.shape
         src = self.input_proj(feats).reshape(b, h * w, self.d_model)
-        pos = profiling.upload("sine_table", sine_position_embedding(h, w, self.d_model // 2),
-                               src.device, self.dtype)[None]
+        pos = self.sine_table(h, w, src.device)
 
         memory = src
         for i in range(self.num_encoder_layers):

@@ -59,6 +59,7 @@ from interactron_tpu_torch.ops import flash_attention as fa
 from interactron_tpu_torch.ops.attention import packed_attention
 from interactron_tpu_torch.ops.flash_attention import draw_seed, dropout_apply
 from interactron_tpu_torch.parallel.mesh import tp_copy, tp_gather
+from interactron_tpu_torch.utils import cuda_graphs
 
 _USE_IM2COL = False
 _USE_SHIFT9 = False
@@ -276,7 +277,8 @@ class Conv2d(nn.Module):
     1x1 conv without padding runs as a matmul; a frozen conv keeps its
     kernel as a buffer. A per-episode kernel (E, O, I, kh, kw) convolves
     each episode's frames with its own kernel. A trainable k>1 conv takes
-    the formulation of the scopes it runs in (`formulation`)."""
+    the formulation of the scopes it runs in (`formulation`), and runs
+    eagerly between the pieces of a CUDA graph (utils/cuda_graphs.py)."""
 
     def __init__(self, in_ch, out_ch, kernel_size, stride=1, padding=0, dilation=1,
                  use_bias=False, frozen=False, dtype=torch.float32):
@@ -313,6 +315,9 @@ class Conv2d(nn.Module):
         return "grouped"
 
     def forward(self, x):
+        graph = cuda_graphs.capturing()
+        if graph is not None and not self.frozen and self.kernel_size > 1:
+            return graph.module(self, x)  # runs between the graph's pieces
         x = x.to(self.dtype)
         w = with_episodes(self.weight.to(self.dtype), 4)
         e = w.shape[0]

@@ -13,7 +13,10 @@ measurements say otherwise.
 Inside `flash_disabled()` (code that is differentiated twice: the meta
 inner loss) attentions past the second-order gates take `FlashAttentionSO`,
 whose backward is itself differentiable and runs the second-order kernel;
-outside it they take the first-order `FlashAttention`.
+outside it they take the first-order `FlashAttention`. While a CUDA graph
+of a pass is being captured (utils/cuda_graphs.py), a call that reaches
+the first-order kernel ends the graph's current piece instead, so the
+kernel is launched between the pieces at each replay.
 
 Two per-call switches, which tasks/base.py sets on every attention module
 from the config: `flash=False` (MODEL.FLASH_ATTENTION: False) sends every
@@ -42,6 +45,7 @@ from interactron_tpu_torch.ops.flash_attention import (
     draw_seed,
     dropout_apply,
 )
+from interactron_tpu_torch.utils import cuda_graphs
 
 # the gates, overridden by the environment variables of the same names
 # with the JAX package's defaults (<- _FLASH_MIN_*, read at import)
@@ -86,6 +90,9 @@ def packed_attention(q, k, v, num_heads, dropout_rate=0.0, gen=None, flash=True,
     seed = draw_seed(gen) if rate > 0.0 else 0
     if flash and not _flash_suppressed and (
             hd >= FLASH_MIN_HD and s >= FLASH_MIN_S and t >= FLASH_MIN_T):
+        graph = cuda_graphs.capturing()
+        if graph is not None:
+            return graph.attention(q, k, v, h, rate)
         return FlashAttention.apply(q, k, v, h, rate, seed)
     if flash and _flash_suppressed and (
             hd >= FLASH_SO_MIN_HD and s >= FLASH_SO_MIN_S and t >= FLASH_SO_MIN_T):

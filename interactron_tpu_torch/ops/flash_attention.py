@@ -439,15 +439,23 @@ def _check_rows(x, q, num_heads, name):
         raise ValueError(f"{name} must be (B, H, T) float32")
 
 
-def flash_fwd(q, k, v, num_heads, rate=0.0, seed=0):
+def flash_fwd(q, k, v, num_heads, rate=0.0, seed=0, out=None):
     """O (B, T, H*D) in q's dtype and L (B, H, T) fp32 from packed q, k, v,
-    with attention-probability dropout at `rate` keyed by `seed`."""
+    with attention-probability dropout at `rate` keyed by `seed`. On the
+    card the kernel writes O into `out` when given (contiguous, 16-byte
+    aligned, q's shape and dtype): a CUDA graph's static buffer."""
     _check(q, k, v, num_heads, rate)
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, num_heads, rate, seed)
     q, k, v = (_aligned(x) for x in (q, k, v))
     b, t, dim = q.shape
-    o = torch.empty_like(q)
+    if out is None:
+        o = torch.empty_like(q)
+    elif (out.shape != q.shape or out.dtype != q.dtype or out.device != q.device
+          or not out.is_contiguous() or out.data_ptr() % 16):
+        raise ValueError("out must be a contiguous, 16-byte aligned tensor like q")
+    else:
+        o = out
     lse = torch.empty((b, num_heads, t), device=q.device, dtype=torch.float32)
     with torch.cuda.device(q.device):
         _launch("flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),

@@ -29,6 +29,7 @@ from interactron_tpu_torch.models.layers import (
 from interactron_tpu_torch.ops.flash_attention import remat_dropout_scope
 from interactron_tpu_torch.utils import constants as C
 from interactron_tpu_torch.utils import profiling
+from interactron_tpu_torch.utils.cuda_graphs import GraphCache, PinnedStaging
 from interactron_tpu_torch.utils.checkpoint import load_pretrained
 
 _DTYPES = {None: torch.float32, "float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -107,6 +108,11 @@ class TaskModel(nn.Module):
         self.adapted_im2col = bool(m.get("ADAPTED_IM2COL", False))
         self.adapted_shift9 = bool(m.get("SHIFT_CONV", True)) and not self.adapted_im2col
         self.use_remat = bool(trainer.get("REMAT", False)) if trainer is not None else False
+        # the shared-weight, no-grad passes replay CUDA graphs
+        # (utils/cuda_graphs.py); the frames reach the card through a pinned
+        # staging buffer
+        self._graphs = GraphCache()
+        self._staging = PinnedStaging()
         self.requires_grad_(False)
         self.eval()
         self.to(self.device)
@@ -175,9 +181,11 @@ class TaskModel(nn.Module):
 
     def frames(self, episodes):
         """episodes["frames"] (E, s, H, W, 3) ImageNet-normalised, as a float32
-        tensor on the model's device."""
+        tensor on the model's device, copied to the card from a pinned
+        buffer without waiting for it."""
         with profiling.span("frames.upload"):
-            return profiling.upload("frames", episodes["frames"], self.device, torch.float32)
+            return self._staging.upload("frames", episodes["frames"], self.device,
+                                        torch.float32)
 
     def _econv_scope(self):
         """Conv scope of the fast-weight detector passes."""
@@ -204,11 +212,15 @@ class TaskModel(nn.Module):
         parameters, or its own parameters when `det_params` is None; dropout
         on when a generator `gen` is given, and in the decoder also with
         `decoder_gen` alone; its layers checkpointed with `remat` under
-        TRAINER.REMAT (JAX's `remat=train`)."""
+        TRAINER.REMAT (JAX's `remat=train`). With its own parameters and no
+        dropout the pass may replay CUDA graphs (`GraphCache.run`)."""
         kw = {"stage": stage, "gen": gen, "decoder_gen": decoder_gen,
               "remat": remat and self.use_remat}
         with self._switches():
             if det_params is None:
+                if gen is None and decoder_gen is None:
+                    return self._graphs.run(self.detector, lambda x: self.detector(x, **kw),
+                                            (images,), **kw)
                 return self.detector(images, **kw)
             return functional_call(self.detector, det_params, (images,), kw)
 
@@ -216,12 +228,17 @@ class TaskModel(nn.Module):
         """Per-frame detector outputs of `episodes` episodes, (E*s, ...)
         episode-major -> the fusion over a batch of E episodes, with
         `fus_params` in place of its parameters when given; its blocks
-        checkpointed as `detr_apply`'s layers."""
+        checkpointed as `detr_apply`'s layers, its own-parameter passes
+        without dropout replayed as `detr_apply`'s."""
         keys = ("embedded_memory_features", "box_features", "pred_logits", "pred_boxes")
         x = {k: detr_out[k].reshape(episodes, -1, *detr_out[k].shape[1:]) for k in keys}
         kw = {"gen": gen, "remat": remat and self.use_remat}
         with self._switches():
             if fus_params is None:
+                if gen is None:
+                    return self._graphs.run(
+                        self.fusion, lambda *t: self.fusion(dict(zip(keys, t)), **kw),
+                        tuple(x[k] for k in keys), **kw)
                 return self.fusion(x, **kw)
             return functional_call(self.fusion, fus_params, (x,), kw)
 

@@ -284,7 +284,9 @@ class InteractronTask(InteractronRandomTask):
     def next_action(self, episodes):
         """Argmax of the fusion's action logits at token s-1 for each of E
         episodes of s frames (1 <= s <= 4; episodes["frames"] (E, s, H, W,
-        3)), in one batched pass with the shared weights: (E,) int64."""
+        3)), in one batched pass with the shared weights: (E,) int64. On
+        the card both passes replay CUDA graphs once their shapes have been
+        seen twice (`TaskModel.detr_apply`)."""
         e, s = len(episodes["frames"]), episodes["frames"].shape[1]
         with profiling.span("serve.next_action", episodes=e, s=s):
             frames = self.frames(episodes)

@@ -17,7 +17,12 @@ formulation's kernels (flash_dq, flash_dkv, flash_so_row, flash_so_col) are
 also held against the merged ones to the same tolerance, and must give
 bitwise-equal outputs run to run (they use no atomics). The mask kernel must
 be bit-exact, at the paths' regions, at rows that start at every residue mod
-16, and on a sub-region against the slice of the full mask.
+16, and on a sub-region against the slice of the full mask. The CUDA graphs
+of the shared-weight passes (utils/cuda_graphs.py) must give the eager
+pass's actions and action logits bit for bit in `next_action` at the
+interactron and interactron_scaled widths, and the eager predictions in
+the baselines' predict, launch the same attention kernels, synchronise
+nowhere, return no aliased tensors and re-capture after the weights move.
 """
 
 import pytest
@@ -269,3 +274,189 @@ def test_conv_formulations_match_grouped_in_bf16(scope):
     assert tl.conv_calls[scope] == before[scope] + 1
     for a, b in zip(got, ref):
         assert (a.float() - b.float()).abs().max().item() <= 2e-2 * b.float().abs().max().item()
+
+
+# ------------------------------------------------- CUDA graphs of next_action
+
+
+def _model(name, seed):
+    """configs/<name>.yaml's task on the card with the port's weights of
+    `seed` (MODEL.WEIGHTS off) and 10 episodes of 5 seeded noise frames at
+    its resolution. FrozenBatchNorm's statistics are set from one pass over
+    the first episode, as pretrained statistics would be: with identity
+    statistics a random ResNet's activations grow through the trunk."""
+    import os
+
+    import numpy as np
+
+    from interactron_tpu_torch.models.layers import FrozenBatchNorm
+    from interactron_tpu_torch.utils.config import Config, build_model, get_config
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = get_config(os.path.join(root, "configs", f"{name}.yaml")).to_dict()
+    cfg["MODEL"]["WEIGHTS"] = ""
+    task = build_model(Config(cfg), device="cuda").init(seed)
+    size = int(cfg["MODEL"]["TEST_RESOLUTION"])
+    frames = np.random.RandomState(seed % 2**32).randn(10, 5, size, size, 3).astype(np.float32)
+
+    def set_stats(mod, args):
+        x = args[0].float()
+        mod.running_mean.copy_(x.mean((0, 2, 3)))
+        mod.running_var.copy_(x.var((0, 2, 3), unbiased=False))
+
+    hooks = [m.register_forward_pre_hook(set_stats) for m in task.modules()
+             if isinstance(m, FrozenBatchNorm)]
+    with torch.no_grad():
+        task.detector(task.frames({"frames": frames[:1]})[0])
+    for h in hooks:
+        h.remove()
+    return task, frames
+
+
+def _kept_logits(task):
+    """Keep the action logits each next_action takes its argmax of, as the
+    serve cell's check does."""
+    kept, fusion_apply = [], task.fusion_apply
+
+    def fusion_kept(*a, **kw):
+        out = fusion_apply(*a, **kw)
+        kept.append(out["actions"])
+        return out
+
+    task.fusion_apply = fusion_kept
+    return kept
+
+
+def _graph_counts():
+    from interactron_tpu_torch.utils import profiling
+
+    rec = profiling.take()
+    c = rec["counters"]
+    return (tuple(c.get(f"graphs.{k}", 0) for k in ("eager", "captures", "replays")),
+            rec["launches"])
+
+
+def _three_calls(fn, sync_free=False):
+    """fn() three times, the recorder on: (outputs, attention launches by
+    kernel, graphs.* counters and recorded launches) per call; the third
+    under set_sync_debug_mode("error") with `sync_free`."""
+    from interactron_tpu_torch.utils import profiling
+
+    outs, launches, counts = [], [], []
+    profiling.take()
+    profiling.enable(True)
+    try:
+        for call in range(3):
+            before = dict(tfa.launches)
+            if call == 2 and sync_free:
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                outs.append(fn())
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            launches.append({k: tfa.launches[k] - before.get(k, 0) for k in tfa.launches})
+            counts.append(_graph_counts())
+    finally:
+        profiling.enable(False)
+        profiling.take()
+    return outs, launches, counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,seed", [("interactron", 2147483647), ("interactron", 1234567891),
+                                       ("interactron", 99), ("interactron_scaled", 2147483647),
+                                       ("interactron_scaled", 5)])
+def test_graphed_next_action_equals_eager_at_interactron_width(name, seed):
+    """E = 10 episodes at s = 1..4 at the config's widths (interactron's
+    ResNet-50-DC5, whose trainable 3x3 convs run between the pieces, and
+    interactron_scaled's ViT-B/16, whose 12 attentions end pieces): each
+    s's first call runs eagerly, its second captures the detector and the
+    fusion and replays them, its third replays; all three give equal
+    actions and bit-equal action logits. Each call launches and records
+    the same attention kernels as the eager pass; under
+    set_sync_debug_mode("error") a replay synchronises nowhere."""
+    _cuda()
+    task, frames = _model(name, seed)
+    kept = _kept_logits(task)
+    for s in range(1, 5):
+        ep = {"frames": frames[:, :s]}
+        kept.clear()
+        actions, launches, counts = _three_calls(lambda: task.next_action(ep), sync_free=True)
+        assert [c for c, _ in counts] == [(2, 0, 0), (0, 2, 0), (0, 0, 2)]
+        assert len(kept) == 3 and all(torch.isfinite(k).all() for k in kept)
+        for a, logits in zip(actions[1:], kept[1:]):
+            assert torch.equal(a, actions[0])
+            assert torch.equal(logits, kept[0])
+        # each call launches and records the same attention kernels,
+        # shape for shape, whether eager, captured or replayed
+        assert launches[0] == launches[1] == launches[2]
+        assert launches[0]["flash_fwd"] > 0
+        assert counts[0][1] == counts[1][1] == counts[2][1]
+    graphs = [e[1] for e in task._graphs.entries.values() if e[1] is not None]
+    assert len(graphs) == 8 and all(g.pieces() > 1 for g in graphs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,graphs", [("single_frame_baseline", 1),
+                                         ("multi_frame_baseline", 2)])
+def test_graphed_baseline_predict_equals_eager(name, graphs):
+    """The baselines' predict through detr_apply(None, ...) (and the
+    multi-frame one's fusion): the first call runs eagerly, the second
+    captures, the third replays; all three give bit-equal predictions and
+    launch and record the same attention kernels."""
+    _cuda()
+    task, frames = _model(name, 11)
+    ep = {"frames": frames[:1]}
+    outs, launches, counts = _three_calls(lambda: task.predict(ep))
+    assert [c for c, _ in counts] == [(graphs, 0, 0), (0, graphs, 0), (0, 0, graphs)]
+    for out in outs[1:]:
+        for k, v in outs[0].items():
+            assert torch.isfinite(v).all() and torch.equal(out[k], v)
+    assert launches[0] == launches[1] == launches[2]
+    assert launches[0]["flash_fwd"] > 0
+    assert counts[0][1] == counts[1][1] == counts[2][1]
+
+
+@pytest.mark.cuda
+def test_graph_outputs_do_not_alias_and_init_recaptures():
+    """Detector passes over two sets of 10 frames: the first runs eagerly,
+    the second captures, and then successive replays return tensors that
+    share no storage, the first keeping its values (bit-equal to the eager
+    pass's). An init() after the capture moves the parameters: the next
+    call runs eagerly (seen anew, never a replay of the old addresses), the
+    one after captures again, and with the same weights loaded back every
+    output is bit-equal to the eager pass's."""
+    _cuda()
+    from interactron_tpu_torch.utils import profiling
+
+    task, grid = _model("interactron", 7)
+    state = {k: v.clone() for k, v in task.state_dict().items()}
+    xs = [torch.as_tensor(grid[:, i], device="cuda") for i in (0, 1)]
+    profiling.take()
+    profiling.enable(True)
+    try:
+        with torch.no_grad():
+            eager, captured = task.detr_apply(None, xs[0]), task.detr_apply(None, xs[1])
+            first = task.detr_apply(None, xs[0])
+            kept = {k: v.clone() for k, v in first.items()}
+            second = task.detr_apply(None, xs[1])
+            assert _graph_counts()[0] == (1, 1, 2)
+            ptrs = [{v.untyped_storage().data_ptr() for v in o.values()} for o in (first, second)]
+            assert not ptrs[0] & ptrs[1]
+            for k in kept:
+                assert torch.equal(first[k], kept[k]) and torch.equal(first[k], eager[k])
+                assert torch.equal(second[k], captured[k]) and not torch.equal(second[k], kept[k])
+            moved = {n: p.data_ptr() for n, p in task.named_parameters()}
+            task.init(0)
+            assert any(p.data_ptr() != moved[n] for n, p in task.named_parameters())
+            task.load_state_dict(state)
+            again = [task.detr_apply(None, xs[0]) for _ in range(3)]
+            assert _graph_counts()[0] == (1, 1, 1)
+            for out in again:
+                for k in kept:
+                    assert torch.equal(out[k], eager[k])
+    finally:
+        profiling.enable(False)
+        profiling.take()

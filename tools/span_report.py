@@ -12,8 +12,8 @@ frames, the warm-up), then:
 
   --syncs  one step or chunk under torch.cuda.set_sync_debug_mode("warn"):
            each synchronising call's site in the program, how often it ran,
-           and whether a `sync.*` span covered it; the recorder's `syncs`
-           and `h2d_bytes` beside them. Warnings raised in the autograd
+           and whether a `sync.*` span covered it; the recorder's `syncs`,
+           `h2d_bytes` and `graphs.*` beside them. Warnings raised in the autograd
            engine's threads go to the standard error, and are counted.
   --gaps   one step or chunk under torch.profiler (CPU and CUDA), the
            recorder off as in the benchmark's profiled stretch, and then one
@@ -29,7 +29,9 @@ frames, the warm-up), then:
 `--first-step` skips the train driver's three set-up steps, so that
 `--syncs` checks the program's first step (interactron.train.b16, whose
 later bf16 steps go non-finite). Prints one JSON line per part. Needs the
-card.
+card. The set-up line lists the CUDA graphs the program captured in the
+warm-up (module, input shapes, pieces), and the `host` and `syncs` lines
+the calls replayed, captured and run eagerly.
 """
 
 import argparse
@@ -80,8 +82,27 @@ def build(name, seed, first_step=False):
             else (lambda: driver._chunk(run)))
     episodes = run.traffic.get("batch") or run.traffic["chunk"]
     out("setup", workload=name, seconds=time.perf_counter() - t0,
-        gpu=bench.host_facts()["gpu"], torch=torch.__version__)
+        gpu=bench.host_facts()["gpu"], torch=torch.__version__, graphs=graphs(run))
     return run, driver, unit, episodes
+
+
+def graphs(run):
+    """The CUDA graphs the program holds after set-up (utils/cuda_graphs.py):
+    [module, its inputs' shapes, pieces] of each captured pass."""
+    held = []
+    for task in run.objects.values():
+        cache = getattr(task, "_graphs", None)
+        names = {id(m): n for n, m in getattr(task, "named_modules", lambda: ())()}
+        for key, (_, graph) in getattr(cache, "entries", {}).items():
+            if graph is not None:
+                held.append([names.get(key[0], "?"), [list(k[0]) for k in key[2]],
+                             graph.pieces()])
+    return held
+
+
+def graph_counts(counters):
+    """The recorder's graphs.* counters: calls replayed, captured, eager."""
+    return {k: counters.get(f"graphs.{k}", 0) for k in ("replays", "captures", "eager")}
 
 
 def _site(stack):
@@ -141,7 +162,8 @@ def syncs(run, unit, episodes):
         warned_in_program=sum(v["calls"] for k, v in sites.items() if k.startswith("interactron")),
         covered=sum(v["covered"] for v in sites.values()),
         other_threads=other_threads, recorder_syncs=rec["counters"].get("syncs", 0),
-        h2d_bytes=rec["counters"].get("h2d_bytes", 0), sync_spans=spans)
+        h2d_bytes=rec["counters"].get("h2d_bytes", 0), sync_spans=spans,
+        graphs=graph_counts(rec["counters"]))
 
 
 def _program_spans(events, names):
@@ -280,6 +302,7 @@ def gaps(run, unit, episodes):
     for s in rec["spans"]:
         self_ms[s.name] = self_ms.get(s.name, 0.0) + own[s.id] / 1e6
     out("host", episodes=episodes, spans=len(rec["spans"]), counters=rec["counters"],
+        graphs=graph_counts(rec["counters"]),
         launches=len(rec["launches"]), clock_matched=matched, clock_worst_ms=worst / 1e6,
         self_ms={k: round(v, 3) for k, v in sorted(self_ms.items(), key=lambda kv: -kv[1])})
 
