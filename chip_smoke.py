@@ -126,12 +126,22 @@ Phases, each of which fails the run (non-zero exit, no "ok" line):
  16. (only when asked for, `--phases 16`) the profiles phase 15 leaves out:
      IM2COL_CONV's and TRAINER.REMAT's cells profiled, and REMAT's peak at a
      batch of 8 at INNER_BATCH 8, on and off.
+ 17. Deformable DETR (configs/interactron_deformable.yaml): (a) the two
+     deformable attention kernels (csrc/ms_deform_attn.cu) against their
+     plain versions at a lockstep chunk's encoder (50 frames, Lq = S = 1930)
+     and decoder (Lq = 300) shapes, fp32 and bf16, with bf16 device ms
+     beside the plain version's, the published grid_sample core's (its
+     autograd backward for the backward) and the least time; (b) the task
+     in bf16 at its published widths through TaskModel: 3 lockstep chunks
+     of 10 (next_action eager, captured, replayed), every call's deformable
+     launches counted from a reset (72 forward, 12 backward a chunk),
+     predictions finite, one lockstep predict profiled.
 Phases 1-9, 11 and 12 run the default (merged) formulation (but for phase
 11's predict check, which runs split so that two runs are bitwise equal):
 the switches are cleared first; phase 13(b) runs split.
 Prints the kernels' JSON line, then {"ok": true, "device": {...}} last.
 `--phases 3,13` (for development) runs phases 1 and 2 and the listed ones
-and prints neither line; the default, all, is phases 3-15.
+and prints neither line; the default, all, is phases 3-15 and 17.
 """
 
 import argparse
@@ -214,6 +224,8 @@ TOL = {
                            "bf16 inputs"),
 }
 EPISODES = 4
+# the phases of a whole run (16 runs only when asked for)
+DEFAULT_PHASES = frozenset({*range(3, 16), 17})
 CHUNK = 10  # phase 5's lockstep chunk: EVALUATOR.ROLLOUT_BATCH's default
 
 
@@ -903,7 +915,8 @@ def profile_run(fn, warm=True, quiet=False):
         f"in {out['conv_launches']} launches")
     if quiet:
         return out
-    # substring matches; no kernel name contains another's
+    # substring matches; no kernel name contains another's but the
+    # deformable attention's, which only their own groups take
     groups = {"flash_fwd (fwd_kernel, fwd_wgmma_kernel)": ("fwd_kernel", "fwd_wgmma_kernel"),
               "flash_bwd (bwd_kernel, bwd_wgmma_kernel)": ("bwd_kernel", "bwd_wgmma_kernel"),
               "flash_dq (dq_kernel, dq_wgmma_kernel)": ("dq_kernel", "dq_wgmma_kernel"),
@@ -914,10 +927,13 @@ def profile_run(fn, warm=True, quiet=False):
               "flash_so_col (sov_col_kernel, so_col_wgmma_kernel)": ("sov_col_kernel",
                                                                      "so_col_wgmma_kernel"),
               "dropout_mask (mask_vec16_kernel)": ("mask_vec16_kernel",),
+              "msda_fwd (msda_fwd_kernel)": ("msda_fwd_kernel",),
+              "msda_bwd (msda_bwd_kernel)": ("msda_bwd_kernel",),
               "convolution (cuDNN and friends)": ("conv", "cudnn", "implicit", "xmma", "sm90_",
                                                   "wgrad", "dgrad", "fprop")}
     for gname, keys in groups.items():
-        hits = [v for n, v in by_name.items() if any(k in n.lower() for k in keys)]
+        hits = [v for n, v in by_name.items() if any(k in n.lower() for k in keys)
+                and ("msda_" in n) == gname.startswith("msda_")]
         log(f"  {gname}: {sum(v[1] for v in hits):.2f} ms in {sum(v[0] for v in hits)} launches")
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]:
         log(f"  {t:8.3f} ms {n:5d}x {name[:110]}")
@@ -2977,15 +2993,215 @@ def remat_profiles(cfg_dict, Task, Config, Trainer, weights, C, fa, card):
     log(f"  card: {card}")
 
 
+# ---------------------------------------------------------------- phase 17
+
+# Deformable DETR's four maps at 300 px (strides 8, 16, 32, 64: 1930 tokens)
+MSDA_LEVELS = ((38, 38), (19, 19), (10, 10), (5, 5))
+# (name, N, Lq): a lockstep chunk's encoder and decoder launches (50 frames)
+MSDA_SHAPES = [("encoder_b50", CHUNK * 5, 1930), ("decoder_b50", CHUNK * 5, 300)]
+# the deformable launches of each served call: a detector pass launches 12
+# forward sums (6 encoder, 6 decoder layers); predict's adapt runs one pass
+# and its backward, then the detect pass
+MSDA_CALLS = {"next_action": {"msda_fwd": 12, "msda_bwd": 0},
+              "predict": {"msda_fwd": 24, "msda_bwd": 12}}
+# max abs error as a multiple of the plain version's max abs value, as the
+# cuda tests hold them: forward and dValue at the output's rounding (bf16
+# 2^-8) or fp32's summation order and atomics; dLocations and dWeights are
+# fp32 sums of the same products in another order in both dtypes
+MSDA_TOL = {torch.float32: (1e-4, 1e-4, 1e-4, 1e-4),
+            torch.bfloat16: (2e-2, 2e-2, 1e-4, 1e-4)}
+
+
+def msda_operands(gen, n, lq, dtype, h=8, d=32, points=4):
+    """Value maps, each query's locations (a point on the frame and a few
+    pixels' offsets around it on every level, some past the edges), softmax
+    weights and an output gradient."""
+    s, lv = sum(a * b for a, b in MSDA_LEVELS), len(MSDA_LEVELS)
+    value = torch.randn(n, s, h * d, generator=gen, device="cuda").to(dtype)
+    loc = torch.rand(n, lq, h, 1, 1, 2, generator=gen, device="cuda") + 0.02 * torch.randn(
+        n, lq, h, lv, points, 2, generator=gen, device="cuda")
+    w = torch.softmax(torch.randn(n, lq, h, lv * points, generator=gen, device="cuda"), -1)
+    go = torch.randn(n, lq, h * d, generator=gen, device="cuda").to(dtype)
+    return value, loc, w.view(n, lq, h, lv, points), go
+
+
+def check_msda(op):
+    """Phase 17(a): both deformable attention wrappers against their plain
+    versions at a lockstep chunk's encoder and decoder shapes, fp32 and
+    bf16 (MSDA_TOL); in bf16 each one's device ms beside the plain
+    version's, the published grid_sample core's (forward, and its autograd
+    backward for the backward: the same function's gradients; a yardstick,
+    the port never calls it) and the least time at the shape
+    (portbench/lib/msda.py: FLOPs at the fp32 rate, compulsory bytes).
+    Returns {shape: entry}."""
+    from portbench.lib import msda
+    from portbench.reference.ms_deform_attn import ms_deform_attn as grid_sample_core
+
+    results = {}
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    for name, n, lq in MSDA_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            value, loc, w, go = msda_operands(gen, n, lq, dtype)
+            got = (op.ms_deform_attn_fwd(value, MSDA_LEVELS, loc, w),
+                   *op.ms_deform_attn_bwd(value, MSDA_LEVELS, loc, w, go))
+            want = (op.ms_deform_attn_fwd_plain(value, MSDA_LEVELS, loc, w),
+                    *op.ms_deform_attn_bwd_plain(value, MSDA_LEVELS, loc, w, go))
+            errs = {}
+            for label, a, b, tol in zip(("out", "d_value", "d_loc", "d_w"), got, want,
+                                        MSDA_TOL[dtype]):
+                scale = float(b.float().abs().max())
+                errs[label] = float((a.float() - b.float()).abs().max()) / scale
+                if a.dtype != b.dtype or a.shape != b.shape or not errs[label] <= tol:
+                    raise AssertionError(f"msda {name} {dtype} {label}: error {errs[label]:.3g}"
+                                         f" x max|plain| > {tol} ({a.dtype} {tuple(a.shape)}, "
+                                         f"plain {b.dtype} {tuple(b.shape)})")
+            del got, want
+            entry = {"errs": errs}
+            if dtype == torch.bfloat16:
+                shape = (n, lq, value.shape[1], 8, 32, len(MSDA_LEVELS), 4, 2)
+                vg, lg, wg = (x.detach().clone().requires_grad_(True) for x in (value, loc, w))
+                core = grid_sample_core(vg, MSDA_LEVELS, lg, wg)
+                for key, fn, plain, library in (
+                    ("fwd", lambda: op.ms_deform_attn_fwd(value, MSDA_LEVELS, loc, w),
+                     lambda: op.ms_deform_attn_fwd_plain(value, MSDA_LEVELS, loc, w),
+                     lambda: grid_sample_core(value, MSDA_LEVELS, loc, w)),
+                    ("bwd", lambda: op.ms_deform_attn_bwd(value, MSDA_LEVELS, loc, w, go),
+                     lambda: op.ms_deform_attn_bwd_plain(value, MSDA_LEVELS, loc, w, go),
+                     lambda: torch.autograd.grad(core, (vg, lg, wg), go.float(),
+                                                 retain_graph=True)),
+                ):
+                    bound_s = msda.bound_s(f"msda_{key}", *shape)
+                    by = ("operations" if msda.flops(f"msda_{key}", *shape[:-1])
+                          / msda.PEAK_FP32_FLOPS >= msda.compulsory_bytes(f"msda_{key}", *shape)
+                          / msda.roofline.PEAK_BYTES else "bytes")
+                    entry.update({f"{key}_ms": cuda_ms(fn), f"{key}_plain_ms": cuda_ms(plain, 3, 1),
+                                  f"{key}_library_ms": cuda_ms(library, 3, 1),
+                                  f"{key}_bound_ms": 1e3 * bound_s, f"{key}_bound_by": by})
+                del core, vg, lg, wg
+                results[name] = entry
+                log(f"  msda {name} (N {n}, Lq {lq}, S {value.shape[1]}) bf16: fwd "
+                    f"{entry['fwd_ms']:.4f} ms (plain {entry['fwd_plain_ms']:.4f}, grid_sample "
+                    f"core {entry['fwd_library_ms']:.4f}, bound {entry['fwd_bound_ms']:.4f} by "
+                    f"{entry['fwd_bound_by']}); bwd {entry['bwd_ms']:.4f} ms (plain "
+                    f"{entry['bwd_plain_ms']:.4f}, grid_sample core's autograd "
+                    f"{entry['bwd_library_ms']:.4f}, bound {entry['bwd_bound_ms']:.4f} by "
+                    f"{entry['bwd_bound_by']}); errors x max|plain| {errs}")
+            else:
+                log(f"  msda {name} fp32: errors x max|plain| {errs}")
+            del value, loc, w, go
+            torch.cuda.empty_cache()
+    return results
+
+
+def deformable_served(op, fa, C, card, chunks=3):
+    """Phase 17(b): configs/interactron_deformable.yaml's task in bf16 at its
+    published widths through TaskModel on the card (the port's weights of
+    seed 0, FrozenBatchNorm statistics from one pass over the first
+    episode, as the cuda tests set them), `chunks` lockstep chunks of CHUNK
+    episodes, the launch counters reset just before: each next_action
+    (eager, captured, then replayed CUDA graphs) and predict launches
+    MSDA_CALLS' deformable kernels, so a chunk 72 forward and 12 backward;
+    predictions finite. Then one lockstep predict profiled. Returns the
+    launch counts of the chunks, flash and deformable."""
+    from interactron_tpu_torch.models.layers import FrozenBatchNorm
+    from interactron_tpu_torch.utils.config import Config, build_model, get_config
+
+    cfg = get_config("configs/interactron_deformable.yaml").to_dict()
+    cfg["MODEL"]["WEIGHTS"] = ""
+    model = build_model(Config(cfg), device="cuda").init(0)
+    size = int(cfg["MODEL"]["TEST_RESOLUTION"])
+    frames = np.random.RandomState(0).randn(CHUNK, C.NUM_FRAMES, size, size, 3).astype(np.float32)
+
+    def set_stats(mod, args):
+        x = args[0].float()
+        mod.running_mean.copy_(x.mean((0, 2, 3)))
+        mod.running_var.copy_(x.var((0, 2, 3), unbiased=False))
+
+    hooks = [m.register_forward_pre_hook(set_stats) for m in model.modules()
+             if isinstance(m, FrozenBatchNorm)]
+    with torch.no_grad():
+        model.detector(model.frames({"frames": frames[:1]})[0])
+    for h in hooks:
+        h.remove()
+    queries = int(cfg["MODEL"]["NUM_QUERIES"])
+    nc = cfg["MODEL"]["NUM_CLASSES"] + 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    op.reset_launches()
+    chunk_ms = []
+    for c in range(chunks):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for what, s in [("next_action", s) for s in range(1, C.NUM_FRAMES)] + [("predict", 5)]:
+            before = dict(op.launches)
+            out = getattr(model, what)({"frames": frames[:, :s]})
+            torch.cuda.synchronize()
+            got = {k: op.launches[k] - before[k] for k in before}
+            if got != MSDA_CALLS[what]:
+                raise AssertionError(f"chunk {c} {what} at s = {s}: deformable launches {got}, "
+                                     f"not {MSDA_CALLS[what]}")
+            if what == "next_action":
+                a = out.tolist()
+                if len(a) != CHUNK or not all(0 <= x < C.NUM_ACTIONS for x in a):
+                    raise AssertionError(f"actions {a}: not {CHUNK} in range")
+        chunk_ms.append(1e3 * (time.perf_counter() - t0))
+        want = {"pred_logits": (CHUNK, 1, queries, nc), "pred_boxes": (CHUNK, 1, queries, 4)}
+        for key, shape in want.items():
+            if tuple(out[key].shape) != shape or not torch.isfinite(out[key]).all():
+                raise AssertionError(f"{key}: shape {tuple(out[key].shape)} or non-finite")
+    counts = {**fa.launches, **op.launches}
+    chunk = {k: v * chunks for k, v in (("msda_fwd", 72), ("msda_bwd", 12))}
+    if {k: counts[k] for k in chunk} != chunk:
+        raise AssertionError(f"deformable launches {counts} over {chunks} chunks, not {chunk}")
+    log(f"  {chunks} lockstep chunks of {CHUNK}: launches {counts} (72 forward and 12 backward "
+        f"deformable sums a chunk, every call's as MSDA_CALLS); chunk ms {chunk_ms} (the first "
+        f"eager, the second captures next_action's graphs); served episodes "
+        f"{1e3 * CHUNK / chunk_ms[-1]:.3f} episodes/s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card: {card}")
+    log(f"  where the time goes: one lockstep predict of {CHUNK} under torch.profiler")
+    profile_run(lambda: model.predict({"frames": frames}), warm=False)
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def msda_kernel_entries(mres, paths):
+    """The kernels line's rows of the two deformable attention kernels, at
+    the encoder's chunk shape, with every shape's times."""
+    rows = []
+    for key in ("fwd", "bwd"):
+        kname = f"msda_{key}"
+        top = mres["encoder_b50"]
+        errs = ("out",) if key == "fwd" else ("d_value", "d_loc", "d_w")
+        by_path = {p: c[kname] for p, c in paths.items() if c.get(kname)}
+        rows.append({
+            "name": kname, "route": "cuda",
+            "source": "interactron_tpu_torch/csrc/ms_deform_attn.cu",
+            "replaces": None, "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": max(top["errs"][k] for k in errs),
+            "ms": top[f"{key}_ms"], "plain_ms": top[f"{key}_plain_ms"],
+            "bound_ms": top[f"{key}_bound_ms"], "bound_by": top[f"{key}_bound_by"],
+            "library_ms": top[f"{key}_library_ms"],
+            "library": "the published grid_sample core (portbench/reference/ms_deform_attn.py)"
+                       + ("" if key == "fwd" else "'s autograd backward"),
+            "at": "encoder N=50 Lq=S=1930 H=8 D=32 L=4 P=4 bf16",
+            "per_shape": [{"shape": name, **{k: r[f"{key}_{k}"] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}
+                for name, r in mres.items()],
+        })
+    return rows
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
     parser.add_argument("--phases", default="all",
-                        help="comma-separated phases 3-16 to run after 1 and 2 (a partial run "
+                        help="comma-separated phases 3-17 to run after 1 and 2 (a partial run "
                              "for development: it prints no kernels line and no ok line); all "
-                             "is 3-15")
+                             "is 3-15 and 17")
     args = parser.parse_args(argv)
-    wanted = set(range(3, 16)) if args.phases == "all" else {int(p) for p in
-                                                             args.phases.split(",")}
+    wanted = DEFAULT_PHASES if args.phases == "all" else {int(p) for p in
+                                                          args.phases.split(",")}
     run = lambda phase: phase in wanted
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3181,8 +3397,20 @@ def main(argv=None):
     if run(4) or run(7) or run(15):
         del pweights
     del weights
+    mres = {}
+    if run(17):
+        from interactron_tpu_torch.ops import ms_deform_attn as msda_op
 
-    if wanted != set(range(3, 16)):
+        t17 = time.perf_counter()
+        log("[17] Deformable DETR (configs/interactron_deformable.yaml): the deformable "
+            "attention kernels vs plain, the served path in lockstep")
+        log("  (a) the MSDA kernels at a lockstep chunk's encoder and decoder shapes")
+        mres = check_msda(msda_op)
+        log(f"  (b) the served path in bf16 at the published widths, chunks of {CHUNK}")
+        paths["deformable_lockstep"] = deformable_served(msda_op, fa, C, card)
+        log(f"  phase 17 took {time.perf_counter() - t17:.1f} s")
+
+    if wanted != DEFAULT_PHASES:
         log(f"total {time.perf_counter() - t_start:.1f} s")
         log(f"partial run (phases 1, 2, {sorted(wanted)}): no kernels line, no ok line")
         return 0
@@ -3238,6 +3466,7 @@ def main(argv=None):
         elif key == "mask":
             kernels[-1].update(redesigned="16-byte stores, no 64-bit index math",
                                host_ms=top["mask_host_ms"])
+    kernels += msda_kernel_entries(mres, paths)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)  # nvidia-smi's name and power limit, on a line of its own
     print(json.dumps({"kernels": kernels}), flush=True)

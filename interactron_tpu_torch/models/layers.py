@@ -435,6 +435,34 @@ class LayerNorm(nn.Module):
         return (yv * wv + with_episodes(self.bias, 1)[:, None]).reshape(y.shape).to(x.dtype)
 
 
+class GroupNorm(nn.Module):
+    """GroupNorm over NCHW with fp32 statistics, cast back to the input
+    dtype; its affine terms may be per-episode (E, C), as LayerNorm's."""
+
+    def __init__(self, groups, features, eps=1e-5):
+        super().__init__()
+        self.groups = groups
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def init_weights(self, gen):
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        x32 = x.float().reshape(b, self.groups, -1)
+        mean = x32.mean(-1, keepdim=True)
+        var = (x32 - mean).square().mean(-1, keepdim=True)
+        y = ((x32 - mean) * torch.rsqrt(var + self.eps)).reshape(b, c, h * w)
+        wt, bs = with_episodes(self.weight, 1), with_episodes(self.bias, 1)
+        e = wt.shape[0]
+        y = y.reshape(e, b // e, c, h * w) * wt[:, None, :, None] + bs[:, None, :, None]
+        return y.reshape(b, c, h, w).to(x.dtype)
+
+
 class MLP(nn.Module):
     """num_layers - 1 ReLU layers and a linear output (DETR's FFN head)."""
 

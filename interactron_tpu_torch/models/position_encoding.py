@@ -9,14 +9,16 @@ every table is a constant of its sizes, computed once in numpy."""
 import numpy as np
 
 
-def sine_position_embedding(h, w, num_pos_feats=128, temperature=10000.0):
-    """Returns (h*w, 2*num_pos_feats) float32, flattened row-major (y, x)."""
+def sine_position_embedding(h, w, num_pos_feats=128, temperature=10000.0, offset=0.0):
+    """Returns (h*w, 2*num_pos_feats) float32, flattened row-major (y, x).
+    `offset` is subtracted from the cumsums before they are normalised:
+    0 in DETR, 0.5 in Deformable DETR (pixel centres)."""
     scale = 2 * np.pi
     eps = 1e-6
     y = np.arange(1, h + 1, dtype=np.float32)[:, None] * np.ones((1, w), np.float32)
     x = np.arange(1, w + 1, dtype=np.float32)[None, :] * np.ones((h, 1), np.float32)
-    y = y / (h + eps) * scale
-    x = x / (w + eps) * scale
+    y = (y - offset) / (h + eps) * scale
+    x = (x - offset) / (w + eps) * scale
     dim_t = np.arange(num_pos_feats, dtype=np.float32)
     dim_t = temperature ** (2 * (dim_t // 2) / num_pos_feats)
     pos_x = x[:, :, None] / dim_t

@@ -90,3 +90,26 @@ class ResNet50DC5(nn.Module):
         for name, _, blocks, *_ in self.LAYERS[1:]:
             x = self._layer(x, name, blocks, remat)
         return x
+
+
+class ResNet50(ResNet50DC5):
+    """torchvision's ResNet-50 without dilation (layer4 strides 2), the
+    backbone of Deformable DETR: "all" and "trunk" return the C3, C4 and C5
+    maps (strides 8, 16 and 32; 38x38, 19x19 and 10x10 at 300 px), "prefix"
+    the frozen stem+layer1 as ResNet50DC5's."""
+
+    LAYERS = ResNet50DC5.LAYERS[:3] + (("layer4", 512, 3, 2, 1, False),)
+    out_channels = (512, 1024, 2048)
+
+    def forward(self, x, stage="all", remat=False):
+        if stage not in ("all", "prefix", "trunk"):
+            raise ValueError(f"unknown stage {stage!r}")
+        if stage != "trunk":
+            x = super().forward(x, stage="prefix")
+            if stage == "prefix":
+                return x
+        feats = []
+        for name, _, blocks, *_ in self.LAYERS[1:]:
+            x = self._layer(x, name, blocks, remat)
+            feats.append(x)
+        return feats

@@ -20,7 +20,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 SOURCES = ("flash_fwd", "flash_bwd", "flash_dq", "flash_dkv", "flash_so", "flash_so_row",
-           "flash_so_col", "dropout_mask")
+           "flash_so_col", "dropout_mask", "ms_deform_attn")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -19,6 +19,7 @@ from torch import nn
 from torch.func import functional_call
 
 from interactron_tpu_torch.models.criterion import set_criterion
+from interactron_tpu_torch.models.deformable_detr import BACKBONES as DEFORMABLE, DeformableDETR
 from interactron_tpu_torch.models.detr import DETR
 from interactron_tpu_torch.models.fusion import build_fusion
 from interactron_tpu_torch.models.layers import (
@@ -49,6 +50,29 @@ def sub_generator(gen):
     return torch.Generator().manual_seed(int(torch.randint(0, 2**62, (), generator=gen)))
 
 
+def build_detector(m, dtype):
+    """The detector of config section MODEL `m`: Deformable DETR for its
+    backbones (models/deformable_detr.py), DETR otherwise."""
+    common = dict(
+        num_classes=m.NUM_CLASSES,
+        d_model=int(m.get("D_MODEL", 256)),
+        num_heads=int(m.get("DETR_NUM_HEADS", 8)),
+        num_encoder_layers=int(m.get("NUM_ENCODER_LAYERS", 6)),
+        num_decoder_layers=int(m.get("NUM_DECODER_LAYERS", 6)),
+        dropout_rate=float(m.get("DETR_DROPOUT", 0.1)),
+        backbone=m.get("BACKBONE", "resnet50"),
+        dtype=dtype,
+    )
+    if common["backbone"] in DEFORMABLE:
+        return DeformableDETR(num_queries=int(m.get("NUM_QUERIES", 300)),
+                              ff_dim=int(m.get("DETR_FF_DIM", 1024)),
+                              num_levels=int(m.get("NUM_FEATURE_LEVELS", 4)),
+                              num_points=int(m.get("NUM_POINTS", 4)), **common)
+    return DETR(num_queries=int(m.get("NUM_QUERIES", C.NUM_QUERIES)),
+                ff_dim=int(m.get("DETR_FF_DIM", 2048)),
+                image_size=int(m.get("TEST_RESOLUTION", C.IMG_SIZE)), **common)
+
+
 class TaskModel(nn.Module):
     needs_fusion = False
     # rows of a transient path state when the caller threads none; the
@@ -61,19 +85,7 @@ class TaskModel(nn.Module):
         self.config = config
         m = config.MODEL
         self.dtype = _DTYPES[m.get("DTYPE")]
-        self.detector = DETR(
-            num_classes=m.NUM_CLASSES,
-            num_queries=int(m.get("NUM_QUERIES", C.NUM_QUERIES)),
-            d_model=int(m.get("D_MODEL", 256)),
-            num_heads=int(m.get("DETR_NUM_HEADS", 8)),
-            num_encoder_layers=int(m.get("NUM_ENCODER_LAYERS", 6)),
-            num_decoder_layers=int(m.get("NUM_DECODER_LAYERS", 6)),
-            ff_dim=int(m.get("DETR_FF_DIM", 2048)),
-            dropout_rate=float(m.get("DETR_DROPOUT", 0.1)),
-            backbone=m.get("BACKBONE", "resnet50"),
-            image_size=int(m.get("TEST_RESOLUTION", C.IMG_SIZE)),
-            dtype=self.dtype,
-        )
+        self.detector = build_detector(m, self.dtype)
         self.fusion = build_fusion(config, self.dtype) if self.needs_fusion else None
         # MODEL.FLASH_ATTENTION is on unless the config says False (CUDA is
         # the port's accelerator); MODEL.CHUNKED_ATTENTION is off unless set

@@ -43,6 +43,7 @@ from interactron_tpu_torch.meta import (
     merge_inner,
     split_inner,
 )
+from interactron_tpu_torch.models.deformable_detr import DeformableDETR
 from interactron_tpu_torch.ops.attention import flash_disabled
 from interactron_tpu_torch.tasks.base import TaskModel, sub_generator
 from interactron_tpu_torch.utils import constants as C
@@ -264,7 +265,16 @@ class InteractronRandomTask(TaskModel):
         given) and, with `train`, each microbatch's dropout streams. Returns
         ({"detector": {name: grad}, "fusion": {name: grad}}, {metric: 0-d
         float64 tensor on the task's device}, path state); the metrics stay
-        on the device, so a loop can sum them there and fetch them once."""
+        on the device, so a loop can sum them there and fetch them once.
+        Deformable DETR is not meta-trained: the inner gradient's graph needs
+        a second-order backward of its attention (ops/ms_deform_attn.py),
+        which the port does not have."""
+        if isinstance(self.detector, DeformableDETR):
+            raise NotImplementedError(
+                "meta-training Deformable DETR (MODEL.BACKBONE "
+                f"{self.config.MODEL.BACKBONE!r}) needs the second-order backward of the "
+                "multi-scale deformable attention, which the port does not have; it serves "
+                "(next_action, predict) only")
         return self._run(batch, gen, path_state, train, frame_index, with_grads=True)
 
     def eval_metrics(self, batch, gen, path_state=None, frame_index=None):

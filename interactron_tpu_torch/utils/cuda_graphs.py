@@ -12,15 +12,18 @@ outside any capture), its second is captured and replayed, and every later
 one is replayed. A call launches each attention kernel once, whichever of
 the three it is.
 
-Pieces. The attention kernels and the trainable k>1 convs run outside the
-graphs. While a capture is open, `ops/attention.py::packed_attention` hands
-each call that reaches a flash kernel to the open graph's `attention`, and
+Pieces. The attention kernels, the deformable attention kernels and the
+trainable k>1 convs run outside the graphs. While a capture is open,
+`ops/attention.py::packed_attention` hands each call that reaches a flash
+kernel to the open graph's `attention`, `models/deformable_detr.py::
+MSDeformAttn` each deformable attention sum to its `msda`, and
 `models/layers.py::Conv2d` each trainable k>1 conv (those whose kernels
-`adapt`'s fast weights replace) to its `module`; either closes the current
+`adapt`'s fast weights replace) to its `module`; each closes the current
 piece, keeps the call on its static inputs and output, and opens the next
 piece. A replay runs piece 0, call 1, piece 1, and so on. An attention is a
 real `flash_fwd` launch through `_launch` into the static output, counted
-and recorded as an eager launch is; a conv runs its module's forward and is
+and recorded as an eager launch is, and a deformable attention likewise
+through `ms_deform_attn_fwd`; a conv runs its module's forward and is
 copied into its static output, so a profiler range around `Conv2d.forward`
 (portbench's fast-weight conv time) times the same conv kernels graphed or
 eager. Dense attentions (the DETR decoder's 50 queries), frozen and 1x1
@@ -53,6 +56,7 @@ import threading
 
 import torch
 
+from interactron_tpu_torch.ops import ms_deform_attn as msda_op
 from interactron_tpu_torch.ops.flash_attention import flash_fwd
 from interactron_tpu_torch.utils import profiling
 
@@ -133,6 +137,18 @@ class PiecewiseGraph:
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)  # in the pool
         self._close()
         self.steps.append(lambda: flash_fwd(q, k, v, num_heads, out=out))
+        self._open()
+        return out
+
+    def msda(self, value, shapes, locations, weights):
+        """A deformable attention sum inside the capture: as `attention`,
+        launched at each replay through `ms_deform_attn_fwd` into the
+        static output, so the launch is counted and recorded."""
+        out = torch.empty(*locations.shape[:2], value.shape[2], dtype=value.dtype,
+                          device=value.device)  # in the pool
+        self._close()
+        self.steps.append(lambda: msda_op.ms_deform_attn_fwd(value, shapes, locations, weights,
+                                                             out=out))
         self._open()
         return out
 

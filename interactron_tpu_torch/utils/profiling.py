@@ -13,7 +13,7 @@ that waits for the device (`sync`) times the wait.
     with span("train.step", step=0, episodes=16):
         with sync("grad_norm"):
             norm = float(gnorm)
-    record = take()  # {"spans": [...], "counters": {...}, "launches": [...], ...}
+    record = take()  # {"spans": [...], "counters": {...}, "launches": [...], "msda": [...], ...}
 
 Off is the default. A span that is off costs a flag check and a check for
 an active torch.profiler session, and returns a shared null context.
@@ -49,7 +49,7 @@ Span = namedtuple("Span", "id parent root name start_ns end_ns thread attrs")
 
 _NULL = contextlib.nullcontext()
 _on = False
-_records = {"spans": [], "launches": []}
+_records = {"spans": [], "launches": [], "msda": []}
 _counters = {}
 _ids = itertools.count(1)
 _lock = threading.Lock()
@@ -173,6 +173,14 @@ def record_launch(kernel, b, t, s, h, d, element_bytes, rate):
         _keep("launches", (kernel, b, t, s, h, d, element_bytes, rate))
 
 
+def record_msda(kernel, n, lq, s, h, d, levels, points, element_bytes):
+    """Keep a deformable attention kernel launch's shapes while recording
+    (ops/ms_deform_attn.py): its name (`msda_fwd` or `msda_bwd`), N, Lq, S,
+    H, D, levels, points and the value's element bytes."""
+    if _on:
+        _keep("msda", (kernel, n, lq, s, h, d, levels, points, element_bytes))
+
+
 def _unix_offset_ns():
     """Unix time minus CLOCK_MONOTONIC, from the closest of a few paired
     reads."""
@@ -187,9 +195,9 @@ def _unix_offset_ns():
 
 
 def take():
-    """The spans (closed ones, in the order they closed), counters and
-    attention launches recorded since the last call, and the clock offset;
-    clears them."""
+    """The spans (closed ones, in the order they closed), counters,
+    attention launches and deformable attention launches (`msda`) recorded
+    since the last call, and the clock offset; clears them."""
     with _lock:
         out = {kind: records for kind, records in _records.items()}
         _records.update({kind: [] for kind in _records})

@@ -23,12 +23,22 @@ pass's actions and action logits bit for bit in `next_action` at the
 interactron and interactron_scaled widths, and the eager predictions in
 the baselines' predict, launch the same attention kernels, synchronise
 nowhere, return no aliased tensors and re-capture after the weights move.
+The deformable attention kernels (ops/ms_deform_attn.py) are held against
+their plain version at the encoder's and decoder's launch shapes of a
+lockstep chunk and at two ragged shapes (D = 40: two channel passes a warp;
+locations past the maps' edges, one exactly at pixel coordinate -1): the forward and dValue 2e-2 x max|ref|
+in bf16 (the bf16 output; dValue's fp32 sums cast to bf16), 1e-4 in fp32
+(summation order; dValue's atomics); dLocations and dWeights, fp32 sums of
+the same products in another order, 1e-4 x max|ref| in both dtypes.
+interactron_deformable's graphed next_action must equal the eager one bit
+for bit and launch and record the same flash and deformable kernels.
 """
 
 import pytest
 import torch
 
 from interactron_tpu_torch.ops import flash_attention as tfa
+from interactron_tpu_torch.ops import ms_deform_attn as tmsda
 
 # (B, T, S, D) where T and S end inside the wgmma kernels' 64-row tiles,
 # with B > 1 where a tile's tail must not read the next batch element
@@ -333,7 +343,7 @@ def _graph_counts():
     rec = profiling.take()
     c = rec["counters"]
     return (tuple(c.get(f"graphs.{k}", 0) for k in ("eager", "captures", "replays")),
-            rec["launches"])
+            (rec["launches"], rec["msda"]))
 
 
 def _three_calls(fn, sync_free=False):
@@ -347,7 +357,7 @@ def _three_calls(fn, sync_free=False):
     profiling.enable(True)
     try:
         for call in range(3):
-            before = dict(tfa.launches)
+            before = {**tfa.launches, **tmsda.launches}
             if call == 2 and sync_free:
                 torch.cuda.synchronize()
                 torch.cuda.set_sync_debug_mode("error")
@@ -356,7 +366,8 @@ def _three_calls(fn, sync_free=False):
             finally:
                 torch.cuda.set_sync_debug_mode(0)
             torch.cuda.synchronize()
-            launches.append({k: tfa.launches[k] - before.get(k, 0) for k in tfa.launches})
+            after = {**tfa.launches, **tmsda.launches}
+            launches.append({k: after[k] - before.get(k, 0) for k in after})
             counts.append(_graph_counts())
     finally:
         profiling.enable(False)
@@ -460,3 +471,75 @@ def test_graph_outputs_do_not_alias_and_init_recaptures():
     finally:
         profiling.enable(False)
         profiling.take()
+
+
+# (N, Lq, levels, H, D, P): a lockstep chunk's encoder (50 frames of 1930
+# tokens) and decoder (300 queries) launches, and a ragged shape
+MSDA_SHAPES = [(50, 1930, ((38, 38), (19, 19), (10, 10), (5, 5)), 8, 32, 4),
+               (50, 300, ((38, 38), (19, 19), (10, 10), (5, 5)), 8, 32, 4),
+               (3, 77, ((9, 13), (5, 7), (3, 4)), 3, 40, 3),
+               (2, 17, ((8, 16), (4, 8)), 2, 32, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,lq,shapes,h,d,p", MSDA_SHAPES)
+def test_msda_kernels_match_plain(n, lq, shapes, h, d, p, dtype):
+    _cuda()
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    s = sum(a * b for a, b in shapes)
+    lv = len(shapes)
+    value = torch.randn(n, s, h * d, generator=g, device="cuda").to(dt)
+    loc = torch.rand(n, lq, h, lv, p, 2, generator=g, device="cuda") * 1.2 - 0.1
+    # pixel coordinates exactly -1: the inside corners' weights are 0, their slopes not
+    loc[0, 0, 0, 0, 0] = torch.tensor([-0.5 / shapes[0][1], -0.5 / shapes[0][0]])
+    w = torch.softmax(torch.randn(n, lq, h, lv * p, generator=g, device="cuda"), -1)
+    w = w.view(n, lq, h, lv, p)
+    go = torch.randn(n, lq, h * d, generator=g, device="cuda").to(dt)
+    before = dict(tmsda.launches)
+    out = tmsda.ms_deform_attn_fwd(value, shapes, loc, w)
+    grads = tmsda.ms_deform_attn_bwd(value, shapes, loc, w, go)
+    torch.cuda.synchronize()
+    assert tmsda.launches["msda_fwd"] - before["msda_fwd"] == 1
+    assert tmsda.launches["msda_bwd"] - before["msda_bwd"] == 1
+    want = tmsda.ms_deform_attn_fwd_plain(value, shapes, loc, w)
+    want_grads = tmsda.ms_deform_attn_bwd_plain(value, shapes, loc, w, go)
+    tol = 2e-2 if dt == torch.bfloat16 else 1e-4
+    assert out.dtype == dt and grads[0].dtype == dt
+    for got, ref, t in zip((out, *grads), (want, *want_grads), (tol, tol, 1e-4, 1e-4)):
+        assert got.shape == ref.shape
+        err = float((got.float() - ref.float()).abs().max())
+        assert err <= t * float(ref.float().abs().max()), (err, float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [2147483647, 7])
+def test_graphed_deformable_next_action_equals_eager(seed):
+    """interactron_deformable at its published widths, E = 10 episodes at
+    s = 1..4: eager, captured and replayed calls give equal actions and
+    bit-equal action logits, and launch and record the same flash and
+    deformable attention kernels (each MSDA sum ends a graph piece and runs
+    through its wrapper); a replay synchronises nowhere."""
+    _cuda()
+    task, frames = _model("interactron_deformable", seed)
+    kept = _kept_logits(task)
+    for s in range(1, 5):
+        ep = {"frames": frames[:, :s]}
+        kept.clear()
+        actions, launches, counts = _three_calls(lambda: task.next_action(ep), sync_free=True)
+        assert [c for c, _ in counts] == [(2, 0, 0), (0, 2, 0), (0, 0, 2)]
+        assert len(kept) == 3 and all(torch.isfinite(k).all() for k in kept)
+        for a, logits in zip(actions[1:], kept[1:]):
+            assert torch.equal(a, actions[0])
+            assert torch.equal(logits, kept[0])
+        assert launches[0] == launches[1] == launches[2]
+        assert launches[0]["msda_fwd"] == 12 and launches[0]["msda_bwd"] == 0
+        assert launches[0]["flash_fwd"] > 0
+        assert counts[0][1] == counts[1][1] == counts[2][1]
+        assert [r[2] for r in counts[0][1][1]] == [1930] * 6 + [300] * 6
+    # the detector's pieces end at its 12 MSDA sums, the decoder's 6 flash
+    # self-attentions and its 14 trainable k>1 convs (13 in the ResNet, the
+    # 4th level's); FusionGPT's at its 4 flash attentions, at every s
+    graphs = [e[1] for e in task._graphs.entries.values() if e[1] is not None]
+    assert sorted(g.pieces() for g in graphs) == [5] * 4 + [33] * 4

@@ -21,7 +21,10 @@ frames, the warm-up), then:
            open on the dispatching thread (and by the outermost), the device
            time of the kernels each span launched, the host's self time by
            span, and how far the recorder's spans lie from their
-           annotations on the profiler's timeline.
+           annotations on the profiler's timeline; the deformable
+           attention's launches by kernel and shapes (`msda` of the
+           record; their spans `msda.fwd`/`msda.bwd` and counter
+           `msda.launches` are among the self times and counters).
   --cost N N alternating pairs of `--window` second windows of the cell's
            traffic, recorder off and on (off, on, on, off, ...), with the
            rate of each.
@@ -301,9 +304,14 @@ def gaps(run, unit, episodes):
     self_ms = {}
     for s in rec["spans"]:
         self_ms[s.name] = self_ms.get(s.name, 0.0) + own[s.id] / 1e6
+    msda = {}
+    for kernel, n, lq, s, *_ in rec.get("msda", []):
+        key = f"{kernel} N={n} Lq={lq} S={s}"
+        msda[key] = msda.get(key, 0) + 1
     out("host", episodes=episodes, spans=len(rec["spans"]), counters=rec["counters"],
         graphs=graph_counts(rec["counters"]),
-        launches=len(rec["launches"]), clock_matched=matched, clock_worst_ms=worst / 1e6,
+        launches=len(rec["launches"]), msda_launches=msda,
+        clock_matched=matched, clock_worst_ms=worst / 1e6,
         self_ms={k: round(v, 3) for k, v in sorted(self_ms.items(), key=lambda kv: -kv[1])})
 
 
